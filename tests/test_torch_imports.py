@@ -1,0 +1,67 @@
+"""tgi_torch and chip_smoke.py stand alone: no jax, no tgi, and no click or
+PIL at module level (the card's machine has none of them)."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "tgi_torch")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _modules():
+    mods = []
+    for path in _port_files():
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        if rel != "chip_smoke":
+            mods.append(rel[:-len(".__init__")] if rel.endswith(".__init__")
+                        else rel)
+    return mods
+
+
+def _imports(node):
+    if isinstance(node, ast.Import):
+        return [a.name.split(".")[0] for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        return [node.module.split(".")[0]]
+    return []
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_forbidden_imports(path):
+    tree = ast.parse(open(path).read(), path)
+    anywhere = {m for n in ast.walk(tree) for m in _imports(n)}
+    assert not anywhere & {"jax", "jaxlib", "tgi"}, anywhere
+    top = {m for n in tree.body for m in _imports(n)}
+    assert not top & {"click", "PIL"}, top
+
+
+def test_import_without_jax_or_tgi():
+    """Import every module of the port, and chip_smoke up to its main,
+    with jax and tgi made unimportable."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'tgi', 'click', 'PIL'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import importlib\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "assert callable(chip_smoke.main)\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, env=env, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -1,0 +1,194 @@
+"""EG3D tri-plane generator (twin of ``tgi/models/generator.py``; parity
+target training/triplane.py:18-136).
+
+A frozen config plus a params dict. ``synthesis`` runs ray sampling, the
+StyleGAN2 backbone, the two-pass volume render and the super-resolution
+eagerly on the params' device. float32 only: ``fused_dtype`` and
+``plane_dtype`` other than ``"float32"`` are refused.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+from tgi_torch.nn.mapping import mapping_network_apply, mapping_network_init
+from tgi_torch.nn.superres import (SRConfig, sr_config_from_class_name,
+                                   superresolution_apply, superresolution_init)
+from tgi_torch.nn.synthesis import (SynthesisConfig, synthesis_network_apply,
+                                    synthesis_network_init)
+from tgi_torch.render.decoder import osg_decoder_init
+from tgi_torch.render.rays import ray_sampler
+from tgi_torch.render.renderer import importance_render
+from tgi_torch.utils.shapes import assert_shape
+
+
+def default_rendering_kwargs(**overrides) -> dict:
+    """rendering_kwargs as shipped in the FFHQ-rebalanced pickle; keys kept
+    verbatim for checkpoint compatibility."""
+    kw = dict(
+        image_resolution=512,
+        disparity_space_sampling=False,
+        clamp_mode="softplus",
+        superresolution_module=(
+            "training.superresolution.SuperresolutionHybrid8XDC"),
+        c_gen_conditioning_zero=False,
+        c_scale=1.0,
+        superresolution_noise_mode="none",
+        density_reg=0.25,
+        density_reg_p_dist=0.004,
+        reg_type="l1",
+        decoder_lr_mul=1.0,
+        sr_antialias=True,
+        depth_resolution=48,
+        depth_resolution_importance=48,
+        ray_start=2.25,
+        ray_end=3.3,
+        box_warp=1.0,
+        avg_camera_radius=2.7,
+        avg_camera_pivot=[0, 0, 0.2],
+        white_back=False,
+        density_noise=0,
+    )
+    kw.update(overrides)
+    return kw
+
+
+@dataclass(frozen=True)
+class GeneratorConfig:
+    z_dim: int = 512
+    c_dim: int = 25
+    w_dim: int = 512
+    img_resolution: int = 512
+    img_channels: int = 3
+    backbone_resolution: int = 256
+    plane_channels: int = 32
+    n_planes: int = 3
+    neural_rendering_resolution: int = 64
+    mapping_layers: int = 8
+    channel_base: int = 32768
+    channel_max: int = 512
+    fused_dtype: str = "float32"
+    plane_dtype: str = "float32"
+    rendering_kwargs: Any = field(default_factory=default_rendering_kwargs)
+
+    def __post_init__(self):
+        if self.fused_dtype != "float32" or self.plane_dtype != "float32":
+            raise NotImplementedError(
+                "tgi_torch runs float32 only (fused_dtype, plane_dtype)")
+
+    @property
+    def backbone_cfg(self) -> SynthesisConfig:
+        return SynthesisConfig(
+            w_dim=self.w_dim, img_resolution=self.backbone_resolution,
+            img_channels=self.plane_channels * self.n_planes,
+            channel_base=self.channel_base, channel_max=self.channel_max)
+
+    @property
+    def sr_cfg(self) -> SRConfig:
+        return sr_config_from_class_name(
+            self.rendering_kwargs["superresolution_module"])
+
+    @property
+    def num_ws(self) -> int:
+        return self.backbone_cfg.num_ws
+
+
+class TriPlaneGenerator:
+    """Stateless functional model: all tensors live in the params dict."""
+
+    def __init__(self, cfg: GeneratorConfig | None = None):
+        self.cfg = cfg or GeneratorConfig()
+
+    def init(self, generator: torch.Generator, device="cuda") -> dict:
+        """Random weights from ``generator`` (a CPU torch.Generator), with
+        the JAX package's distributions: unit normal weights under
+        run-time equalised-lr scaling, zero or ``bias_init`` biases,
+        ``w_avg`` zero."""
+        cfg = self.cfg
+        return {
+            "mapping": mapping_network_init(
+                generator, cfg.z_dim, cfg.c_dim, cfg.w_dim, cfg.num_ws,
+                num_layers=cfg.mapping_layers, device=device),
+            "backbone": synthesis_network_init(generator, cfg.backbone_cfg,
+                                               device=device),
+            "superresolution": superresolution_init(
+                generator, cfg.sr_cfg, w_dim=cfg.w_dim, device=device),
+            "decoder": osg_decoder_init(generator, cfg.plane_channels,
+                                        output_dim=cfg.plane_channels,
+                                        device=device),
+        }
+
+    def mapping(self, params, z, c, truncation_psi=1.0,
+                truncation_cutoff=None):
+        """z [N, z_dim], c [N, 25] -> ws [N, num_ws, w_dim]
+        (triplane.py:48-51)."""
+        cfg = self.cfg
+        assert_shape(z, (None, cfg.z_dim), "z")
+        assert_shape(c, (None, cfg.c_dim), "c (camera conditioning)")
+        if cfg.rendering_kwargs.get("c_gen_conditioning_zero", False):
+            c = torch.zeros_like(c)
+        c = c * cfg.rendering_kwargs.get("c_scale", 0.0)
+        return mapping_network_apply(
+            params["mapping"], z, c, z_dim=cfg.z_dim, c_dim=cfg.c_dim,
+            num_ws=cfg.num_ws, num_layers=cfg.mapping_layers,
+            truncation_psi=truncation_psi,
+            truncation_cutoff=truncation_cutoff)
+
+    def backbone_planes(self, params, ws, *, noise_mode="const"):
+        """ws -> tri-planes [N, 3, 32, 256, 256] (triplane.py:71-76)."""
+        cfg = self.cfg
+        planes = synthesis_network_apply(params["backbone"], ws,
+                                         cfg.backbone_cfg,
+                                         noise_mode=noise_mode)
+        N = planes.shape[0]
+        return planes.reshape(N, cfg.n_planes, cfg.plane_channels,
+                              planes.shape[-2], planes.shape[-1])
+
+    def synthesis(self, params, ws, c, *, neural_rendering_resolution=None,
+                  noise_mode="const", det=True, generator=None, planes=None,
+                  sr_max_res=None):
+        """Full render: ws [N, num_ws, 512], c [N, 25] ->
+        {'image', 'image_raw', 'image_depth', 'planes'} (triplane.py:53-90).
+
+        ``planes`` skips the backbone (the reference's cache_backbone /
+        use_cached_backbone contract). ``generator`` drives the render's
+        random draws when ``det`` is False. ``sr_max_res`` truncates the
+        SR pyramid (see superresolution_apply).
+        """
+        cfg = self.cfg
+        rk = cfg.rendering_kwargs
+        res = neural_rendering_resolution or cfg.neural_rendering_resolution
+        assert_shape(ws, (None, cfg.num_ws, cfg.w_dim), "ws")
+        assert_shape(c, (None, 25), "c (flat cam2world + intrinsics)")
+        N = c.shape[0]
+        cam2world = c[:, :16].reshape(N, 4, 4)
+        intrinsics = c[:, 16:25].reshape(N, 3, 3)
+
+        ray_origins, ray_dirs = ray_sampler(cam2world, intrinsics, res)
+        if planes is None:
+            planes = self.backbone_planes(params, ws, noise_mode=noise_mode)
+
+        feature_samples, depth_samples, _ = importance_render(
+            planes, params["decoder"], ray_origins, ray_dirs, rk, det=det,
+            generator=generator)
+
+        feature_image = feature_samples.permute(0, 2, 1).reshape(
+            N, feature_samples.shape[-1], res, res)
+        depth_image = depth_samples.permute(0, 2, 1).reshape(N, 1, res, res)
+        rgb_image = feature_image[:, :3]
+        sr_image = superresolution_apply(
+            params["superresolution"], rgb_image, feature_image, ws,
+            cfg.sr_cfg, sr_antialias=rk.get("sr_antialias", True),
+            noise_mode=rk.get("superresolution_noise_mode", "none"),
+            max_res=sr_max_res)
+        return {"image": sr_image, "image_raw": rgb_image,
+                "image_depth": depth_image, "planes": planes}
+
+    def __call__(self, params, z, c, truncation_psi=1.0,
+                 truncation_cutoff=None, **synthesis_kwargs):
+        ws = self.mapping(params, z, c, truncation_psi=truncation_psi,
+                          truncation_cutoff=truncation_cutoff)
+        return self.synthesis(params, ws, c, **synthesis_kwargs)

@@ -1,0 +1,132 @@
+"""Core StyleGAN2 layers as functions over parameter dicts (twin of
+``tgi/nn/layers.py``).
+
+Each module is an ``*_init(generator, ..., device)`` that returns a dict
+of tensors, keyed as the JAX pytree (and so the reference state_dict),
+plus an ``*_apply(params, ...)``. Equalized learning-rate scaling is
+applied at run time, as in the reference. float32 only.
+
+Random draws use an explicit CPU ``torch.Generator`` and are then moved
+to ``device``, so a seed gives the same weights on every device.
+
+Behavioral parity targets:
+  FullyConnectedLayer  networks_stylegan2.py:95-130
+  Conv2dLayer          networks_stylegan2.py:134-188
+  modulated_conv2d     networks_stylegan2.py:33-91
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from tgi_torch.ops.bias_act import bias_act
+from tgi_torch.ops.conv2d_resample import conv2d_resample
+from tgi_torch.ops.filters import setup_filter
+
+
+def randn(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard normal draw from a CPU generator, placed on ``device``."""
+    return torch.randn(tuple(shape), generator=generator,
+                       dtype=torch.float32).to(device)
+
+
+def normalize_2nd_moment(x, dim=1, eps=1e-8):
+    return x * torch.rsqrt(x.square().mean(dim=dim, keepdim=True) + eps)
+
+
+# ---------------------------------------------------------------------------
+# FullyConnectedLayer
+
+
+def fully_connected_init(generator, in_features, out_features, bias=True,
+                         lr_multiplier=1.0, bias_init=0.0, device="cuda"):
+    params = {"weight": randn(generator, (out_features, in_features), device)
+              / lr_multiplier}
+    if bias:
+        params["bias"] = torch.full((out_features,), float(bias_init),
+                                    dtype=torch.float32, device=device)
+    return params
+
+
+def fully_connected_apply(params, x, activation="linear", lr_multiplier=1.0):
+    in_features = params["weight"].shape[1]
+    weight_gain = lr_multiplier / math.sqrt(in_features)
+    w = params["weight"].to(x.dtype) * weight_gain
+    b = params.get("bias")
+    if b is not None:
+        b = b.to(x.dtype)
+        if lr_multiplier != 1:
+            b = b * lr_multiplier
+    return bias_act(x @ w.T, b, act=activation)
+
+
+# ---------------------------------------------------------------------------
+# Conv2dLayer (plain conv with optional resampling)
+
+
+def conv2d_layer_init(generator, in_channels, out_channels, kernel_size,
+                      bias=True, device="cuda"):
+    params = {"weight": randn(
+        generator, (out_channels, in_channels, kernel_size, kernel_size),
+        device)}
+    if bias:
+        params["bias"] = torch.zeros((out_channels,), dtype=torch.float32,
+                                     device=device)
+    return params
+
+
+def conv2d_layer_apply(params, x, activation="linear", up=1, down=1,
+                       resample_filter=(1, 3, 3, 1), conv_clamp=None,
+                       gain=1.0):
+    out_c, in_c, kh, kw = params["weight"].shape
+    weight_gain = 1 / math.sqrt(in_c * kh * kw)
+    act_gain_tbl = {"linear": 1.0, "lrelu": math.sqrt(2),
+                    "relu": math.sqrt(2)}
+    w = params["weight"].to(x.dtype) * weight_gain
+    b = params.get("bias")
+    f = setup_filter(list(resample_filter)) if (up > 1 or down > 1) else None
+    x = conv2d_resample(x, w, f=f, up=up, down=down, padding=kh // 2,
+                        flip_weight=(up == 1))
+    act_gain = act_gain_tbl.get(activation, 1.0) * gain
+    act_clamp = conv_clamp * gain if conv_clamp is not None else None
+    return bias_act(x, b.to(x.dtype) if b is not None else None,
+                    act=activation, gain=act_gain, clamp=act_clamp)
+
+
+# ---------------------------------------------------------------------------
+# Modulated conv
+
+
+def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
+                     resample_filter=None, demodulate=True, flip_weight=True):
+    """Style-modulated, demodulated convolution.
+
+    The unfused formulation of ``tgi``: scale the activations by the
+    styles before a shared-weight conv and by the demodulation
+    coefficients after it. It equals the reference's grouped
+    per-sample-weight conv (networks_stylegan2.py:81-91) algebraically.
+
+    Args:
+        x: [N, C_in, H, W].
+        weight: [C_out, C_in, kh, kw] (shared across batch).
+        styles: [N, C_in] modulation.
+        noise: optional broadcastable noise added after demodulation.
+    """
+    out_c, in_c, kh, kw = weight.shape
+    dcoefs = None
+    if demodulate:
+        # [N, O]: rsqrt of sum over (I, kh, kw) of (w * s)^2, without the
+        # [N, O, I, kh, kw] tensor.
+        w2 = weight.square().reshape(out_c, in_c, kh * kw).sum(-1)  # [O, I]
+        dcoefs = torch.rsqrt(styles.square() @ w2.T + 1e-8)         # [N, O]
+
+    x = x * styles.to(x.dtype)[:, :, None, None]
+    x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up,
+                        down=down, padding=padding, flip_weight=flip_weight)
+    if demodulate:
+        x = x * dcoefs.to(x.dtype)[:, :, None, None]
+    if noise is not None:
+        x = x + noise.to(x.dtype)
+    return x

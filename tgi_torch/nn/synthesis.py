@@ -1,0 +1,225 @@
+"""StyleGAN2 synthesis network, skip architecture (twin of
+``tgi/nn/synthesis.py``).
+
+Behavioral parity targets (networks_stylegan2.py):
+  SynthesisLayer    :275-336
+  ToRGBLayer        :340-365
+  SynthesisBlock    :369-470
+  SynthesisNetwork  :474-524
+
+float32 throughout. Noise modes: ``"const"`` (the stored
+``noise_const`` buffers) and ``"none"``; per-draw random noise waits for
+the training and inversion slices.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from tgi_torch.nn.layers import (fully_connected_apply, fully_connected_init,
+                                 modulated_conv2d, randn)
+from tgi_torch.ops.bias_act import activation_funcs, bias_act
+from tgi_torch.ops.filters import setup_filter
+from tgi_torch.ops.upfirdn2d import upsample2d
+
+RESAMPLE_FILTER = setup_filter([1, 3, 3, 1])
+NOISE_MODES = ("const", "none")
+
+
+def block_resolutions(img_resolution: int) -> list[int]:
+    log2 = int(math.log2(img_resolution))
+    assert 2 ** log2 == img_resolution and img_resolution >= 4
+    return [2 ** i for i in range(2, log2 + 1)]
+
+
+def channels_for(img_resolution: int, channel_base: int = 32768,
+                 channel_max: int = 512) -> dict[int, int]:
+    return {res: min(channel_base // res, channel_max)
+            for res in block_resolutions(img_resolution)}
+
+
+def synthesis_num_ws(img_resolution: int) -> int:
+    """num_conv per block (+1 torgb on the last block)."""
+    return sum(1 if res == 4 else 2
+               for res in block_resolutions(img_resolution)) + 1
+
+
+@dataclass(frozen=True)
+class SynthesisConfig:
+    w_dim: int = 512
+    img_resolution: int = 256
+    img_channels: int = 96
+    channel_base: int = 32768
+    channel_max: int = 512
+    conv_clamp: float | None = 256
+
+    @property
+    def resolutions(self):
+        return block_resolutions(self.img_resolution)
+
+    @property
+    def channels(self):
+        return channels_for(self.img_resolution, self.channel_base,
+                            self.channel_max)
+
+    @property
+    def num_ws(self):
+        return synthesis_num_ws(self.img_resolution)
+
+
+def _check_noise_mode(noise_mode):
+    if noise_mode not in NOISE_MODES:
+        raise NotImplementedError(
+            f"noise_mode={noise_mode!r}: tgi_torch supports {NOISE_MODES}")
+
+
+# ---------------------------------------------------------------------------
+# SynthesisLayer
+
+
+def synthesis_layer_init(generator, in_channels, out_channels, w_dim,
+                         resolution, kernel_size=3, use_noise=True,
+                         device="cuda"):
+    params = {
+        "affine": fully_connected_init(generator, w_dim, in_channels,
+                                       bias_init=1.0, device=device),
+        "weight": randn(generator, (out_channels, in_channels, kernel_size,
+                                    kernel_size), device),
+        "bias": torch.zeros((out_channels,), dtype=torch.float32,
+                            device=device),
+    }
+    if use_noise:
+        params["noise_const"] = randn(generator, (resolution, resolution),
+                                      device)
+        params["noise_strength"] = torch.zeros((), dtype=torch.float32,
+                                               device=device)
+    return params
+
+
+def synthesis_layer_apply(params, x, w, *, up=1, use_noise=True,
+                          activation="lrelu", conv_clamp=None,
+                          noise_mode="const", gain=1.0):
+    _check_noise_mode(noise_mode)
+    styles = fully_connected_apply(params["affine"], w)
+    noise = None
+    if use_noise and noise_mode == "const":
+        noise = params["noise_const"] * params["noise_strength"]
+
+    x = modulated_conv2d(x, params["weight"], styles, noise=noise, up=up,
+                         padding=params["weight"].shape[-1] // 2,
+                         resample_filter=RESAMPLE_FILTER if up > 1 else None,
+                         flip_weight=(up == 1))
+    act_gain = activation_funcs[activation].def_gain * gain
+    act_clamp = conv_clamp * gain if conv_clamp is not None else None
+    return bias_act(x, params["bias"].to(x.dtype), act=activation,
+                    gain=act_gain, clamp=act_clamp)
+
+
+# ---------------------------------------------------------------------------
+# ToRGBLayer
+
+
+def torgb_layer_init(generator, in_channels, out_channels, w_dim,
+                     kernel_size=1, device="cuda"):
+    return {
+        "affine": fully_connected_init(generator, w_dim, in_channels,
+                                       bias_init=1.0, device=device),
+        "weight": randn(generator, (out_channels, in_channels, kernel_size,
+                                    kernel_size), device),
+        "bias": torch.zeros((out_channels,), dtype=torch.float32,
+                            device=device),
+    }
+
+
+def torgb_layer_apply(params, x, w, *, conv_clamp=None):
+    out_c, in_c, kh, kw = params["weight"].shape
+    weight_gain = 1 / math.sqrt(in_c * kh * kw)
+    styles = fully_connected_apply(params["affine"], w) * weight_gain
+    x = modulated_conv2d(x, params["weight"], styles, demodulate=False)
+    return bias_act(x, params["bias"].to(x.dtype), clamp=conv_clamp)
+
+
+# ---------------------------------------------------------------------------
+# SynthesisBlock
+
+
+def synthesis_block_init(generator, in_channels, out_channels, w_dim,
+                         resolution, img_channels, use_noise=True,
+                         device="cuda"):
+    params = {}
+    if in_channels == 0:
+        params["const"] = randn(generator,
+                                (out_channels, resolution, resolution), device)
+    else:
+        params["conv0"] = synthesis_layer_init(
+            generator, in_channels, out_channels, w_dim, resolution,
+            use_noise=use_noise, device=device)
+    params["conv1"] = synthesis_layer_init(
+        generator, out_channels, out_channels, w_dim, resolution,
+        use_noise=use_noise, device=device)
+    # Skip architecture: every block carries a torgb (accumulated output).
+    params["torgb"] = torgb_layer_init(generator, out_channels, img_channels,
+                                       w_dim, device=device)
+    return params
+
+
+def synthesis_block_apply(params, x, img, ws, *, in_channels, conv_clamp=256,
+                          use_noise=True, noise_mode="const", up=2):
+    """ws: [N, num_conv + 1, w_dim]. Returns (x, img).
+
+    ``up=1`` is the SR 'NoUp' variant (superresolution.py:158-257)."""
+    w_idx = 0
+    if in_channels == 0:
+        x = params["const"][None].repeat(ws.shape[0], 1, 1, 1)
+    else:
+        x = synthesis_layer_apply(
+            params["conv0"], x, ws[:, w_idx], up=up, use_noise=use_noise,
+            conv_clamp=conv_clamp, noise_mode=noise_mode)
+        w_idx += 1
+    x = synthesis_layer_apply(
+        params["conv1"], x, ws[:, w_idx], use_noise=use_noise,
+        conv_clamp=conv_clamp, noise_mode=noise_mode)
+    w_idx += 1
+
+    if img is not None and up > 1:
+        img = upsample2d(img, RESAMPLE_FILTER)
+    y = torgb_layer_apply(params["torgb"], x, ws[:, w_idx],
+                          conv_clamp=conv_clamp)
+    img = img + y if img is not None else y
+    return x, img
+
+
+# ---------------------------------------------------------------------------
+# SynthesisNetwork
+
+
+def synthesis_network_init(generator, cfg: SynthesisConfig, device="cuda"):
+    params = {}
+    channels = cfg.channels
+    for res in cfg.resolutions:
+        in_ch = channels[res // 2] if res > 4 else 0
+        params[f"b{res}"] = synthesis_block_init(
+            generator, in_ch, channels[res], cfg.w_dim, res,
+            cfg.img_channels, device=device)
+    return params
+
+
+def synthesis_network_apply(params, ws, cfg: SynthesisConfig, *,
+                            noise_mode="const"):
+    """ws: [N, num_ws, w_dim] -> img [N, img_channels, R, R] (float32)."""
+    channels = cfg.channels
+    ws = ws.float()
+    x = img = None
+    w_idx = 0
+    for res in cfg.resolutions:
+        in_ch = channels[res // 2] if res > 4 else 0
+        num_conv = 1 if res == 4 else 2
+        x, img = synthesis_block_apply(
+            params[f"b{res}"], x, img, ws[:, w_idx:w_idx + num_conv + 1],
+            in_channels=in_ch, conv_clamp=cfg.conv_clamp,
+            noise_mode=noise_mode)
+        w_idx += num_conv
+    return img
