@@ -65,3 +65,12 @@ def test_import_without_jax_or_tgi():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=REPO, env=env, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_scan_covers_the_stage2_modules():
+    """The scans above reach every module of the stage-2 slice."""
+    assert {"tgi_torch.apps.run_pti", "tgi_torch.invert.coach",
+            "tgi_torch.io.checkpoints", "tgi_torch.losses.basic",
+            "tgi_torch.losses.lpips", "tgi_torch.losses.warp",
+            "tgi_torch.models.alexnet", "tgi_torch.utils.image"} <= set(
+                _modules())

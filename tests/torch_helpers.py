@@ -1,0 +1,180 @@
+"""Helpers shared by the port's parity tests (not a test module)."""
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from tgi.ops import grid_sample as jgs
+from tgi_torch.ops import grid_sample as gs
+
+TOL = 1e-5
+
+
+def border_coords(H, W, box_warp):
+    """World points whose plane-0 (x, y) corners sit on the borders:
+    x0 = -1, x0 = W-1, y0 = H-1, y0 = -1, and points outside the box."""
+    def world(ix, iy):
+        u = (ix + 0.5) * 2.0 / W - 1.0
+        v = (iy + 0.5) * 2.0 / H - 1.0
+        return [u * box_warp / 2, v * box_warp / 2, 0.0]
+    pts = [world(-0.3, 3.2), world(W - 1 + 0.4, 5.7), world(4.1, H - 1 + 0.6),
+           world(2.5, -0.8), world(-0.5, -0.5), world(W - 0.5, H - 0.5),
+           world(W + 3.0, 2.0), [2.0 * box_warp, -1.5 * box_warp, 0.7]]
+    return np.asarray(pts, np.float32)
+
+
+def splat_inputs(seed, N, C, H, W, M, box_warp):
+    """(planes [N,3,C,H,W], coords [N,M,3] with the border points first,
+    feature gradient [N,3,M,C]) from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    planes = rng.randn(N, 3, C, H, W).astype(np.float32)
+    coords = ((rng.rand(N, M, 3) * 1.4 - 0.7) * box_warp).astype(np.float32)
+    b = border_coords(H, W, box_warp)
+    coords[:, :len(b)] = b
+    g = rng.randn(N, 3, M, C).astype(np.float32)
+    return planes, coords, g
+
+
+def close(got, want, tol):
+    """max|got - want| <= tol * max(1, max|want|)."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    scale = max(1.0, np.abs(want).max())
+    assert err <= tol * scale, (err, scale)
+
+
+def port_splat_grads(planes, coords, g, box_warp):
+    """(d_planes, d_coords) of the port's sample_triplanes for cotangent g."""
+    p = torch.from_numpy(planes).requires_grad_(True)
+    c = torch.from_numpy(coords).requires_grad_(True)
+    gs.sample_triplanes(p, c, box_warp).backward(torch.from_numpy(g))
+    return p.grad, c.grad
+
+
+def tpu_route_grads(C, M, N=1, H=32, W=32, box_warp=1.0):
+    """(port (d_planes, d_coords), tgi's TPU route's) for one input; the
+    Pallas kernels run in interpret mode."""
+    planes, coords, g = splat_inputs(1, N, C, H, W, M, box_warp)
+    fn = jgs._gsp_tpu_for(None)
+
+    def vjp(p, c, g):
+        def f(p, c):
+            proj = jgs.project_onto_planes((2.0 / box_warp) * c)
+            return fn(p.reshape(N * 3, C, H, W),
+                      proj.reshape(N * 3, M, 2)).reshape(N, 3, M, C)
+        return jax.vjp(f, p, c)[1](g)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.jit(vjp)(jnp.asarray(planes), jnp.asarray(coords),
+                            jnp.asarray(g))
+    return port_splat_grads(planes, coords, g, box_warp), want
+
+
+# The tiny generator of ``__graft_entry__.py``: plane C = 8, 32² backbone,
+# 16² rays, 8 + 8 samples, SuperresolutionTiny.
+TINY = dict(z_dim=32, c_dim=25, w_dim=32, img_resolution=64,
+            backbone_resolution=32, plane_channels=8, mapping_layers=2,
+            channel_base=512, channel_max=32, neural_rendering_resolution=16)
+TINY_RK = dict(superresolution_module="SuperresolutionTiny",
+               depth_resolution=8, depth_resolution_importance=8,
+               image_resolution=64)
+
+
+def tiny_pair():
+    """(tgi generator, its params, port generator, the same params as CPU
+    tensors). The weights are the port's own init (the same names,
+    shapes and distributions as tgi's, ``test_torch_generator.py``
+    checks), carried to tgi as arrays: no JAX init to compile. Noise
+    strengths are 0.3 and ``w_avg`` 0.5, so those paths carry signal."""
+    from tgi.models import GeneratorConfig as JGeneratorConfig
+    from tgi.models import TriPlaneGenerator as JTriPlaneGenerator
+    from tgi.models import default_rendering_kwargs as jrk
+    from tgi_torch.models.generator import (GeneratorConfig,
+                                            TriPlaneGenerator,
+                                            default_rendering_kwargs)
+    gj = JTriPlaneGenerator(JGeneratorConfig(rendering_kwargs=jrk(**TINY_RK),
+                                             **TINY))
+    gt = TriPlaneGenerator(GeneratorConfig(
+        rendering_kwargs=default_rendering_kwargs(**TINY_RK), **TINY))
+    pt = gt.init(torch.Generator().manual_seed(0), device="cpu")
+    for path, t in leaves_with_paths(pt):
+        if path[-1] == "noise_strength":
+            t.fill_(0.3)
+    pt["mapping"]["w_avg"].fill_(0.5)
+    pj = jax.tree.map(lambda t: jnp.asarray(t.numpy()), pt)
+    return gj, pj, gt, pt
+
+
+def tiny_camera(yaw=0.0):
+    """Packed camera [1, 25] (numpy) at ``yaw`` around the FFHQ pivot."""
+    from tgi.render import cameras as jcameras
+    cam = jcameras.look_at_pose(np.pi / 2 + yaw, np.pi / 2,
+                                jnp.asarray([0., 0., 0.2]), radius=2.7)
+    return np.array(jcameras.pack_camera(
+        cam[None], jcameras.fov_to_intrinsics(18.837)))
+
+
+def render_draws(key, N, M, D, D_importance):
+    """The (jitter, u) that ``tgi``'s ``synthesis(key=key, det=False)``
+    draws: its key splits into (backbone, render, SR), the render key
+    into (stratified, importance, density noise)
+    (``tgi/models/generator.py:185``, ``tgi/render/renderer.py:70``)."""
+    _, k_render, _ = jax.random.split(key, 3)
+    k_strat, k_imp, _ = jax.random.split(k_render, 3)
+    jitter = jax.random.uniform(k_strat, (N, M, D, 1))
+    u = jax.random.uniform(k_imp, (N * M, D_importance))
+    return (torch.from_numpy(np.array(jitter)),
+            torch.from_numpy(np.array(u)))
+
+
+def leaves_with_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves_with_paths(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def jit_ref(fn):
+    """``jax.jit`` for a reference computation: the same HLO, compiled at
+    XLA's backend optimisation level 0, which halves the CPU compile of
+    the generator's gradient; the tests compare values, not speed."""
+    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0})
+
+
+def assert_updates_match(tuned, want, start, steps, grads, lr=3e-4):
+    """Tuned parameters against the reference's, through the update each
+    element received (``Δ = tuned - start``).
+
+    Adam moves a weight by about ``lr`` per step whatever the size of its
+    gradient, so an element whose gradient sits at the fp32 rounding
+    floor (the gradients agree to 1e-4 of their leaf's largest) may step
+    either way in either package. Every element is held within
+    ``2 · steps · lr`` (the most Adam moves it). Elements whose
+    reference gradient is at least 1e-2 of the leaf's largest at every
+    step in ``grads`` (per-step gradient trees; the first step's alone
+    where only it is at hand: three steps of lr 3e-4 barely move a
+    gradient), whose sign and size rounding cannot change, are held
+    within ``2e-2 · steps · lr``: a 1e-2 relative gradient error moves
+    Adam's m/sqrt(v) by at most ~2e-2."""
+    start = dict(leaves_with_paths(start))
+    got = dict(leaves_with_paths(tuned))
+    hist = [dict(leaves_with_paths(g)) for g in grads]
+    moved = 0
+    for path, w in leaves_with_paths(want):
+        d_want = np.asarray(w) - np.asarray(start[path])
+        err = np.abs(got[path].numpy() - np.asarray(start[path]) - d_want)
+        assert err.max() <= 2 * steps * lr, (path, err.max())
+        sure = np.ones(d_want.shape, bool)
+        for h in hist:
+            g = np.abs(np.asarray(h[path]))
+            sure &= g >= 1e-2 * g.max()
+        assert (err[sure] <= 2e-2 * steps * lr).all(), (path,
+                                                        err[sure].max())
+        moved += int(np.abs(d_want).max() > 0)
+    assert moved > 10

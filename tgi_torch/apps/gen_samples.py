@@ -11,12 +11,12 @@ from __future__ import annotations
 import math
 import os
 
-import numpy as np
 import torch
 
 from tgi_torch import default_device
 from tgi_torch.render.cameras import (fov_to_intrinsics, look_at_pose,
                                       pack_camera)
+from tgi_torch.utils.image import save_image
 
 
 def parse_range(s: str) -> list[int]:
@@ -29,22 +29,6 @@ def parse_range(s: str) -> list[int]:
         else:
             out.append(int(part))
     return out
-
-
-def to_uint8(img: torch.Tensor, input_range=(-1, 1)) -> np.ndarray:
-    """[C, H, W] or [N, C, H, W] float -> [H, W, C] uint8 (first item)."""
-    arr = img.detach().float().cpu().numpy()
-    if arr.ndim == 4:
-        arr = arr[0]
-    lo, hi = input_range
-    arr = (arr - lo) / (hi - lo) * 255.0
-    arr = np.clip(np.rint(arr), 0, 255).astype(np.uint8)
-    return np.transpose(arr, (1, 2, 0))
-
-
-def save_image(path, img, input_range=(-1, 1)):
-    from PIL import Image
-    Image.fromarray(to_uint8(img, input_range), "RGB").save(path)
 
 
 def seed_z(seed: int, z_dim: int, device) -> torch.Tensor:

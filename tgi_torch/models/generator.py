@@ -149,14 +149,16 @@ class TriPlaneGenerator:
 
     def synthesis(self, params, ws, c, *, neural_rendering_resolution=None,
                   noise_mode="const", det=True, generator=None, planes=None,
-                  sr_max_res=None):
+                  sr_max_res=None, jitter=None, u=None):
         """Full render: ws [N, num_ws, 512], c [N, 25] ->
         {'image', 'image_raw', 'image_depth', 'planes'} (triplane.py:53-90).
 
         ``planes`` skips the backbone (the reference's cache_backbone /
         use_cached_backbone contract). ``generator`` drives the render's
-        random draws when ``det`` is False. ``sr_max_res`` truncates the
-        SR pyramid (see superresolution_apply).
+        random draws when ``det`` is False; ``jitter`` and ``u`` give
+        them as tensors instead (see ``importance_render``).
+        ``sr_max_res`` truncates the SR pyramid (see
+        superresolution_apply).
         """
         cfg = self.cfg
         rk = cfg.rendering_kwargs
@@ -173,7 +175,7 @@ class TriPlaneGenerator:
 
         feature_samples, depth_samples, _ = importance_render(
             planes, params["decoder"], ray_origins, ray_dirs, rk, det=det,
-            generator=generator)
+            generator=generator, jitter=jitter, u=u)
 
         feature_image = feature_samples.permute(0, 2, 1).reshape(
             N, feature_samples.shape[-1], res, res)

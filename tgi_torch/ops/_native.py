@@ -24,7 +24,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("triplane_gather.cu",)
+SOURCES = ("triplane_gather.cu", "triplane_splat.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -80,17 +80,27 @@ def build_all() -> dict[str, str]:
     return targets
 
 
-def library() -> ctypes.CDLL:
-    """The tri-plane gather library, built on first use."""
-    src = "triplane_gather.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
+# Entry point of each source and its C signature (all return an int error).
+ENTRY_POINTS = {
+    # planes, coords, out, N, H, W, C, M, scale, stream
+    "triplane_gather.cu": ("tgi_triplane_gather_f32",
+                           [_P, _P, _P, _I, _I, _I, _I, _L, _F, _P]),
+    # g, coords, planes, d_planes, d_coords, N, H, W, C, M, scale, stream
+    "triplane_splat.cu": ("tgi_triplane_splat_f32",
+                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _F, _P]),
+}
+
+
+def library(src: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<src>``, built on first use."""
     with _lock:
         if src not in _libs:
             lib = ctypes.CDLL(build_all()[src])
-            fn = lib.tgi_triplane_gather_f32
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-                           ctypes.c_void_p]
+            name, argtypes = ENTRY_POINTS[src]
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             lib.tgi_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tgi_cuda_error_string.restype = ctypes.c_char_p
@@ -99,4 +109,4 @@ def library() -> ctypes.CDLL:
 
 
 def error_string(err: int) -> str:
-    return library().tgi_cuda_error_string(err).decode()
+    return library(SOURCES[0]).tgi_cuda_error_string(err).decode()
