@@ -29,14 +29,32 @@ Phases, each fatal on failure:
      target rendered from another latent, 2 gather and 2 splat launches
      per step, finite losses, a last loss below the first, tuned weights
      that moved and a checkpoint that reads back;
-  7. times: each kernel per launch (CUDA events, median) beside its
+  7. the port's stage-1 path (projection) at full width, with VGG16 and
+     the pose ResNet-34 drawn from a seed: one step's gradients (w, noise,
+     pose net, translation) through the kernels against the plain
+     sampler, a non-zero pose-net gradient (the camera's gradient crosses
+     the splat's ``d_coords``), the same step under ``TGI_SPLAT=mxu``
+     against the default route, and the launches per step;
+  8. stage 1 + stage 2 through ``run_pti``'s ``invert_one`` without
+     pivots, in each splat mode: 60 projection steps (50 preheat + 10
+     joint) on a target rendered from another latent and yaw, the pivot
+     files written and read by stage 2, 10 tuning steps;
+  9. times: each kernel per launch (CUDA events, median) beside its
      plain version, a PyTorch library call computing the same function
      and the card's bound; one full-width render; one tuning step split
-     into forward, backward and Adam.
+     into forward, backward and Adam; one stage-1 step split into
+     forward, backward and the three Adams; the sorted splat's prep and
+     segment kernel apart.
 
-TF32 is off throughout, so every comparison is in full fp32. The splat
-sums with atomics in an order that changes from run to run, so it is
-held to its plain version by a relative bound, not bit for bit.
+Phase 3 also holds the sorted splat (``TGI_SPLAT=mxu``'s backward)
+against its plain version, checks that two runs give the same bits, and
+that ``triplane_splat.cu`` without its ``d_planes`` gives the fused
+run's ``d_coords``.
+
+TF32 is off throughout, so every comparison is in full fp32. The fused
+splat sums with atomics in an order that changes from run to run, so it
+is held to its plain version by a relative bound, not bit for bit; the
+sorted splat has no atomics.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -80,6 +98,11 @@ SMALL_CPU_TOL = 1e-4       # small generator, card vs CPU, max abs
 GRAD_TOL = 1e-3
 DEPTH_RANGE = (2.25, 3.3)
 PTI_STEPS = 10
+STAGE1_STEPS = 60          # the 50 preheat steps and 10 joint ones
+# Stage-1 gradients, kernels vs plain sampler and TGI_SPLAT=mxu vs the
+# default route, ||Δ||_2 <= STAGE1_GRAD_TOL * ||want||_2 per group (w,
+# noise, pose net, translation), with deterministic cuDNN algorithms.
+STAGE1_GRAD_TOL = 1e-4
 
 
 def fail(msg):
@@ -204,6 +227,46 @@ def phase_splat_vs_plain(torch, gs):
                   f"{SPLAT_TOL} * {scale}")
             worst_abs = max(worst_abs, err)
             worst_rel = max(worst_rel, err / scale)
+    return worst_abs, worst_rel
+
+
+def phase_sorted_vs_plain(torch, gs):
+    """The sorted splat against its plain version at the check shapes,
+    two runs of it bit for bit, and ``triplane_splat.cu``'s ``d_coords``
+    without its ``d_planes`` against the fused run's. Returns the max
+    absolute and relative errors."""
+    gen = torch.Generator().manual_seed(7)
+    worst_abs = worst_rel = 0.0
+    for N, C, H, W, M in CHECK_SHAPES:
+        planes_cl = torch.randn(N, 3, H, W, C, generator=gen).to(DEVICE)
+        coords = torch.rand(N, M, 3, generator=gen) * 1.4 - 0.7
+        coords[:, :6] = torch.tensor(border_coords(H, W))
+        coords = coords.to(DEVICE)
+        g = torch.randn(N, 3, M, C, generator=gen).to(DEVICE)
+        got = gs.triplane_splat_sorted_cuda(coords, g, 1.0, H, W)
+        again = gs.triplane_splat_sorted_cuda(coords, g, 1.0, H, W)
+        want = gs.triplane_splat_sorted_plain(coords, g, 1.0, H, W)
+        _, fused = gs.triplane_splat_cuda(planes_cl, coords, g, 1.0, True)
+        none, alone = gs.triplane_splat_cuda(planes_cl, coords, g, 1.0, True,
+                                             want_dplanes=False)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        c_err = (alone - fused).abs().max().item()
+        c_scale = max(1.0, fused.abs().max().item())
+        log(f"triplane_splat_sorted vs plain: N={N} C={C} {H}x{W} M={M}: "
+            f"max abs err {err:.3g} (max |plain| {scale:.4g}, relative "
+            f"{err / scale:.3g}); two runs bitwise equal: "
+            f"{torch.equal(got, again)}; d_coords without d_planes vs "
+            f"fused: max abs err {c_err:.3g}, bitwise equal "
+            f"{torch.equal(alone, fused)}")
+        check(err <= SPLAT_TOL * scale, f"sorted splat disagrees with its "
+              f"plain version: {err} > {SPLAT_TOL} * {scale}")
+        check(torch.equal(got, again), "two runs of the sorted splat differ")
+        check(none is None and c_err <= SPLAT_TOL * c_scale,
+              f"d_coords without d_planes differs by {c_err}")
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / scale)
     return worst_abs, worst_rel
 
 
@@ -555,6 +618,413 @@ def phase_stage2(torch, gs, G, params, tmp):
     return launches, dict(coach=coach, ws=ws, cam=cam, target=target)
 
 
+def counts(gs):
+    return {"triplane_gather": gs.LAUNCHES,
+            "triplane_splat": gs.SPLAT_LAUNCHES,
+            "triplane_splat_sorted": gs.SORTED_SPLAT_LAUNCHES}
+
+
+def zero_counts(gs):
+    gs.LAUNCHES = gs.SPLAT_LAUNCHES = gs.SORTED_SPLAT_LAUNCHES = 0
+
+
+class splat_route:
+    """``TGI_SPLAT`` set to ``mode`` inside the block, restored after."""
+
+    def __init__(self, mode):
+        self.mode = mode
+
+    def __enter__(self):
+        self.old = os.environ.get("TGI_SPLAT")
+        os.environ["TGI_SPLAT"] = self.mode
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("TGI_SPLAT", None)
+        else:
+            os.environ["TGI_SPLAT"] = self.old
+
+
+def stage1_nets(torch, target_255):
+    """(pose ResNet-34 with a quaternion head, VGG16, its LPIPS head) at
+    full width, drawn from a seed. A random ResNet-34 saturates its tanh
+    head, which leaves the pose net no gradient; its BatchNorm statistics
+    are calibrated on the target (``resnet34_calibrate``), the O(1)
+    operating point of a trained estimator."""
+    from tgi_torch.models.pose_resnet import resnet34_calibrate, resnet34_init
+    from tgi_torch.models.vgg import lpips_head_init, vgg16_init
+    gen = torch.Generator().manual_seed(8)
+    pose = resnet34_init(gen, 4, DEVICE)
+    with torch.no_grad():
+        pose = resnet34_calibrate(pose, target_255)
+    return pose, vgg16_init(gen, DEVICE), lpips_head_init(gen, DEVICE)
+
+
+def stage1_target(torch, G, params, seed=2, yaw=-0.25):
+    """A target rendered from ``seed``'s latent at ``yaw``: (image in
+    [-1, 1] at the generator's resolution, the 256² [0, 255] target the
+    pose net and LPIPS read)."""
+    from tgi_torch.apps.gen_samples import seed_z
+    from tgi_torch.losses.warp import area_downsample
+    with torch.no_grad():
+        ws = G.mapping(params, seed_z(seed, G.cfg.z_dim, DEVICE),
+                       _camera(torch, 0.0), truncation_psi=0.7,
+                       truncation_cutoff=14)
+        img = G.synthesis(params, ws, _camera(torch, yaw),
+                          det=True)["image"].clamp(-1, 1)
+    return img, area_downsample((img + 1) * 127.5, 256)
+
+
+def stage1_setup(torch, G, params, nets):
+    """A projector at full width, its initial state and the inputs of one
+    joint-phase step, every draw from a seed."""
+    from tgi_torch.invert.projector import Projector, ProjectorConfig
+    from tgi_torch.models.vgg import lpips_features
+    pose, vgg, head = nets
+    img, t255 = stage1_target(torch, G, params)
+    proj = Projector(G, params, vgg, head, pose,
+                     ProjectorConfig(num_steps=STAGE1_STEPS))
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    state, opts, w_std = proj.init_state(generator=gen)
+    with torch.no_grad():
+        feats = lpips_features(vgg, head, t255)
+    step = proj.cfg.cam_preheat_steps + 5
+    w_noise = torch.randn(state["w"].shape, generator=gen, device=DEVICE) * (
+        w_std * proj.schedule(step)[0])
+    res = G.cfg.neural_rendering_resolution
+    rk = G.cfg.rendering_kwargs
+    cpu = torch.Generator().manual_seed(10)
+    draws = tuple((torch.rand(1, res * res, rk["depth_resolution"], 1,
+                              generator=cpu).to(DEVICE),
+                   torch.rand(res * res, rk["depth_resolution_importance"],
+                              generator=cpu).to(DEVICE)) for _ in range(2))
+    return dict(proj=proj, state=state, opts=opts, t255=t255, img=img,
+                feats=feats, w_noise=w_noise, draws=draws, step=step,
+                gen=gen)
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _group_err(torch, a, b, group):
+    """Norm-wise error of a against b over every tensor of ``group``,
+    and b's norm."""
+    keys = [k for k in b if k.split(".")[0] == group]
+    va = torch.cat([a[k].flatten() for k in keys])
+    vb = torch.cat([b[k].flatten() for k in keys])
+    return _norm_err(va, vb), vb.norm().item()
+
+
+def phase_stage1_grads(torch, gs, st):
+    """One full-width stage-1 step's gradients (w, every noise buffer,
+    every pose-net leaf, the translation) through the kernels, again,
+    through the plain sampler's autograd, and under ``TGI_SPLAT=mxu``,
+    with deterministic cuDNN algorithms. Returns the launches per step
+    and the sorted splat's inputs (the main path's own)."""
+    import tgi_torch.render.renderer as renderer
+    proj, state = st["proj"], st["state"]
+    named = dict(_named_leaves(state))
+    real = {name: getattr(gs, name) for name in
+            ("triplane_splat_cuda", "triplane_splat_sorted_cuda")}
+    flags, seen = [], []
+
+    def record_splat(*args, **kw):
+        flags.append((args[4], kw.get("want_dplanes", True)))
+        return real["triplane_splat_cuda"](*args, **kw)
+
+    def record_sorted(*args):
+        seen.append(args)
+        return real["triplane_splat_sorted_cuda"](*args)
+
+    def grads(mode="pack", sampler=None):
+        for t in named.values():
+            t.grad = None
+        renderer.sample_triplanes = sampler or gs.sample_triplanes
+        gs.triplane_splat_cuda = record_splat
+        gs.triplane_splat_sorted_cuda = record_sorted
+        try:
+            with splat_route(mode):
+                loss, _ = proj._loss(state, st["t255"], st["feats"],
+                                     st["w_noise"], draws=st["draws"],
+                                     target_warp=st["img"])
+                loss.backward()
+            torch.cuda.synchronize()
+            return {k: t.grad.clone() for k, t in named.items()}
+        finally:
+            renderer.sample_triplanes = gs.sample_triplanes
+            for name, fn in real.items():
+                setattr(gs, name, fn)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        zero_counts(gs)
+        kernel = grads()
+        per_step = counts(gs)
+        with_coords = sum(need for need, _ in flags)
+        check(per_step == {"triplane_gather": 4, "triplane_splat": 4,
+                           "triplane_splat_sorted": 0} and with_coords == 2,
+              f"launches per stage-1 step {per_step}, {with_coords} with "
+              f"d_coords; expected 4 gathers and 4 splats, 2 with d_coords")
+        again = grads()
+        before = counts(gs)
+        plain = grads(sampler=gs.sample_triplanes_plain)
+        check(counts(gs) == before, "the plain sampler launched a kernel")
+        zero_counts(gs)
+        flags.clear()
+        mxu = grads("mxu")
+        per_step_mxu = counts(gs)
+        coords_only = sum(need and not want for need, want in flags)
+        check(per_step_mxu == {"triplane_gather": 4, "triplane_splat": 2,
+                               "triplane_splat_sorted": 4}
+              and coords_only == 2,
+              f"launches per stage-1 step under TGI_SPLAT=mxu "
+              f"{per_step_mxu}; expected 4 gathers, 4 sorted splats and 2 "
+              f"d_coords-only splats")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log(f"stage-1 step launches: default {per_step} ({with_coords} splats "
+        f"with d_coords); TGI_SPLAT=mxu {per_step_mxu} ({coords_only} "
+        f"splats for d_coords only)")
+    worst = 0.0
+    for group in ("w", "noise", "pose", "translation"):
+        err, scale = _group_err(torch, kernel, plain, group)
+        err2, _ = _group_err(torch, again, kernel, group)
+        err_mxu, _ = _group_err(torch, mxu, kernel, group)
+        log(f"stage-1 gradient of {group}: norm {scale:.4g}; kernels vs "
+            f"plain sampler: norm err {err:.3g}; kernels twice: {err2:.3g}; "
+            f"TGI_SPLAT=mxu vs default: {err_mxu:.3g}")
+        check(math.isfinite(scale) and scale > 0,
+              f"the stage-1 step gives {group} no gradient")
+        check(err <= STAGE1_GRAD_TOL and err_mxu <= STAGE1_GRAD_TOL,
+              f"{group}: kernels vs plain {err}, mxu vs default {err_mxu} > "
+              f"{STAGE1_GRAD_TOL}")
+        worst = max(worst, err, err_mxu)
+    leaf_errs = sorted((_norm_err(kernel[k], plain[k]), k) for k in named
+                       if plain[k].abs().max().item() > 0)
+    log(f"stage-1 gradients per tensor, kernels vs plain: worst norm err "
+        f"{leaf_errs[-1][0]:.3g} ({leaf_errs[-1][1]}) over {len(leaf_errs)} "
+        f"tensors")
+    return {"default": per_step, "mxu": per_step_mxu, "worst": worst}, seen
+
+
+def phase_stage1_stage2(torch, gs, G, params, nets, tmp, mode):
+    """Stage 1 and stage 2 through ``run_pti``'s ``invert_one`` without
+    pivots, with ``TGI_SPLAT=mode``: STAGE1_STEPS projection steps on a
+    target rendered from seed 2's latent at yaw -0.25, then PTI_STEPS
+    tuning steps around the pivots it wrote. Returns the launches of
+    each stage."""
+    import numpy as np
+    from tgi_torch.apps.run_pti import invert_one, pivot_files
+    from tgi_torch.invert.coach import CoachConfig, PTICoach
+    from tgi_torch.invert.projector import Projector, ProjectorConfig
+    from tgi_torch.losses.lpips import make_lpips
+    pose, vgg, head = nets
+    img, t255 = stage1_target(torch, G, params)
+    out = os.path.join(tmp, f"stage1_{mode}")
+    os.makedirs(out)
+    proj = Projector(G, params, vgg, head, pose,
+                     ProjectorConfig(num_steps=STAGE1_STEPS))
+    lpips = make_lpips("alex", generator=torch.Generator().manual_seed(5),
+                       device=DEVICE)
+    coach = PTICoach(G, lpips, CoachConfig(max_pti_steps=PTI_STEPS,
+                                           lpips_threshold=0.0))
+    at_stage2 = {}
+    real_tune = coach.tune
+
+    def tune(gen_params, ws, cam, *args, **kw):
+        torch.cuda.synchronize()
+        at_stage2.update(launches=counts(gs), t=time.perf_counter(),
+                         ws=ws.cpu().numpy(), cam=cam.cpu().numpy())
+        return real_tune(gen_params, ws, cam, *args, **kw)
+
+    coach.tune = tune
+    try:
+        import PIL  # noqa: F401
+        png_renders = 2     # invert_one renders the pivot and the result
+    except ImportError:
+        png_renders = 0
+    with splat_route(mode):
+        torch.cuda.synchronize()
+        zero_counts(gs)
+        t0 = time.perf_counter()
+        entry, _, info = invert_one(
+            "face", img, G=G, gen_params=params, coach=coach, out_dir=out,
+            projector=proj, target_255=t255, use_last_w_pivots=False,
+            generator=torch.Generator(device=DEVICE).manual_seed(11))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = counts(gs)
+    stage1 = at_stage2["launches"]
+    stage2 = {k: total[k] - stage1[k] for k in total}
+    proj_losses = info["projection"]["loss"]
+    log(f"stage 1 + stage 2 (invert_one without pivots, TGI_SPLAT={mode}) "
+        f"in {wall:.1f} s (stage 1 {at_stage2['t'] - t0:.1f} s): stage 1 "
+        f"{len(proj_losses)} steps, loss {proj_losses[0]:.5g} -> "
+        f"{proj_losses[-1]:.5g}; stage 2 {info['steps']} steps, loss "
+        f"{info['losses'][0]:.5g} -> {info['losses'][-1]:.5g}; pivots ws "
+        f"{at_stage2['ws'].shape}, cam {at_stage2['cam'].shape}; launches "
+        f"stage 1 {stage1}, stage 2 {stage2}; entry {entry}")
+    ws_file, cam_file = pivot_files(out, "face")
+    check(os.path.exists(ws_file) and os.path.exists(cam_file),
+          "stage 1 wrote no pivot files")
+    check(np.array_equal(np.load(ws_file), at_stage2["ws"])
+          and np.array_equal(np.load(cam_file), at_stage2["cam"]),
+          "stage 2 did not tune around the pivots stage 1 wrote")
+    check(at_stage2["ws"].shape == (1, G.cfg.num_ws, G.cfg.w_dim)
+          and at_stage2["cam"].shape == (1, 25), "pivots of the wrong shape")
+    check(len(proj_losses) == STAGE1_STEPS and info["steps"] == PTI_STEPS,
+          f"{len(proj_losses)} projection and {info['steps']} tuning steps")
+    check(all(math.isfinite(x) for x in proj_losses + info["losses"]),
+          "non-finite loss")
+    sorted_mode = mode == "mxu"
+    want1 = {"triplane_gather": 4 * STAGE1_STEPS,
+             "triplane_splat": (2 if sorted_mode else 4) * STAGE1_STEPS,
+             "triplane_splat_sorted": 4 * STAGE1_STEPS if sorted_mode else 0}
+    want2 = {"triplane_gather": 2 * (PTI_STEPS + png_renders),
+             "triplane_splat": 0 if sorted_mode else 2 * PTI_STEPS,
+             "triplane_splat_sorted": 2 * PTI_STEPS if sorted_mode else 0}
+    check(stage1 == want1 and stage2 == want2,
+          f"launches stage 1 {stage1}, stage 2 {stage2}; expected {want1}, "
+          f"{want2}")
+    return {"stage1": stage1, "stage2": stage2, "wall": wall}
+
+
+def phase_stage1_step_times(torch, gs, st, mode="pack", steps=6, warmup=2):
+    """One joint-phase stage-1 step, the body of ``Projector.step``: the
+    loss forward, the backward, the three Adams with the noise
+    renormalization, on CUDA events; returns the medians and the peak
+    memory."""
+    proj, state, opts = st["proj"], st["state"], st["opts"]
+    parts = {"forward": [], "backward": [], "adams": [], "step": [],
+             "step_host": []}
+    with splat_route(mode):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(warmup + steps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            for opt in opts.values():
+                opt.zero_grad(set_to_none=True)
+            loss, _ = proj._loss(state, st["t255"], st["feats"],
+                                 st["w_noise"], generator=st["gen"],
+                                 target_warp=st["img"])
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            proj.update(state, opts, st["step"])
+            ev[3].record()
+            ev[3].synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            if i >= warmup:
+                parts["forward"].append(ev[0].elapsed_time(ev[1]))
+                parts["backward"].append(ev[1].elapsed_time(ev[2]))
+                parts["adams"].append(ev[2].elapsed_time(ev[3]))
+                parts["step"].append(ev[0].elapsed_time(ev[3]))
+                parts["step_host"].append(host)
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    med["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"times, one full-width stage-1 step (TGI_SPLAT={mode}, median of "
+        f"{steps}): {med['step']:.2f} ms = forward {med['forward']:.2f} + "
+        f"backward {med['backward']:.2f} + Adams {med['adams']:.2f} ms (CUDA "
+        f"events); host clock {med['step_host']:.2f} ms; peak memory "
+        f"{med['peak_gib']:.2f} GiB; all steps: {parts}")
+    return med
+
+
+def phase_sorted_times(torch, gs, seen, bw):
+    """The sorted splat per pass on the main path's inputs (the stage-1
+    step's four backward passes under TGI_SPLAT=mxu): whole, its prep
+    (cell kernel, sort, search) and its segment kernel apart, beside
+    ``triplane_splat.cu``, the plain version and
+    ``grid_sampler_2d_backward`` on the same input, and the bound."""
+    rows = []
+    for i, (coords, g, bwarp, H, W) in enumerate(seen):
+        N, M = coords.shape[:2]
+        C = g.shape[3]
+        order, offsets = gs.splat_prep_cuda(coords, bwarp, H, W)
+        planes_cl = torch.empty((N, 3, H, W, C), device=DEVICE)  # not read
+        nchw = planes_cl.permute(0, 1, 4, 2, 3).reshape(N * 3, C, H, W)
+        grid = gs.project_onto_planes((2.0 / bwarp) * coords).reshape(
+            N * 3, 1, M, 2)
+        g_lib = g.reshape(N * 3, M, C).permute(0, 2, 1).reshape(
+            N * 3, C, 1, M).contiguous()
+        t = {
+            "ms": cuda_ms(torch, lambda: gs.triplane_splat_sorted_cuda(
+                coords, g, bwarp, H, W)),
+            "prep_ms": cuda_ms(torch, lambda: gs.splat_prep_cuda(
+                coords, bwarp, H, W)),
+            "segment_ms": cuda_ms(torch, lambda: gs.splat_segments_cuda(
+                coords, g, order, offsets, bwarp, H, W)),
+            "fused_splat_ms": cuda_ms(torch, lambda: gs.triplane_splat_cuda(
+                planes_cl, coords, g, bwarp, False)),
+            "plain_ms": cuda_ms(torch, lambda: gs.triplane_splat_sorted_plain(
+                coords, g, bwarp, H, W), iters=5),
+            "library_ms": cuda_ms(torch, lambda: torch.ops.aten.
+                                  grid_sampler_2d_backward(
+                                      g_lib, nchw, grid, 0, 0, False,
+                                      [True, False])),
+        }
+        # The sorted formulation's least traffic: g and coords read, the
+        # entries (int32) and offsets read, d_planes written once.
+        # Operations: per entry a corner weight (~20 flops) and a
+        # multiply-add per channel.
+        nbytes = 4 * (N * 3 * M * C + N * M * 3 + N * 3 * 4 * M
+                      + N * 3 * (H * W + 1) + N * 3 * H * W * C)
+        flops = N * 3 * 4 * M * (2 * C + 20)
+        t["bound_ms"] = max(nbytes / bw, flops / FP32_FLOPS) * 1e3
+        t["bound_by"] = ("bytes" if nbytes / bw >= flops / FP32_FLOPS
+                         else "operations")
+        log(f"times, sorted splat pass {i} (N={N}, M={M}, C={C}, {H}x{W}): "
+            + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else
+                        f"{k} {v}" for k, v in t.items())
+            + f" ({nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s)")
+        rows.append(t)
+    out = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]
+           if k != "bound_by"}
+    out["bound_by"] = rows[0]["bound_by"]
+    return out
+
+
+def phase_small_splat_times(torch, gs, bw):
+    """``triplane_splat.cu`` at the C = 16 check shape (tgi's
+    ``plane_splat`` case), beside its plain version, the library call and
+    the bound."""
+    N, C, H, W, M = CHECK_SHAPES[2]
+    gen = torch.Generator().manual_seed(12)
+    planes_cl = torch.randn(N, 3, H, W, C, generator=gen).to(DEVICE)
+    coords = (torch.rand(N, M, 3, generator=gen) * 1.4 - 0.7).to(DEVICE)
+    g = torch.randn(N, 3, M, C, generator=gen).to(DEVICE)
+    nchw = planes_cl.permute(0, 1, 4, 2, 3).reshape(
+        N * 3, C, H, W).contiguous()
+    grid = gs.project_onto_planes(2.0 * coords).reshape(N * 3, 1, M, 2)
+    g_lib = g.reshape(N * 3, M, C).permute(0, 2, 1).reshape(
+        N * 3, C, 1, M).contiguous()
+    t = {"ms": cuda_ms(torch, lambda: gs.triplane_splat_cuda(
+             planes_cl, coords, g, 1.0, False)),
+         "plain_ms": cuda_ms(torch, lambda: gs.triplane_splat_plain(
+             planes_cl, coords, g, 1.0, False)),
+         "library_ms": cuda_ms(torch, lambda: torch.ops.aten.
+                               grid_sampler_2d_backward(
+                                   g_lib, nchw, grid, 0, 0, False,
+                                   [True, False]))}
+    nbytes = 4 * (N * 3 * M * C + N * M * 3 + N * 3 * H * W * C)
+    flops = N * 3 * M * (8 * C + 20)
+    t["bound_ms"] = max(nbytes / bw, flops / FP32_FLOPS) * 1e3
+    t["bound_by"] = ("bytes" if nbytes / bw >= flops / FP32_FLOPS
+                     else "operations")
+    t["shape"] = [N, C, H, W, M]
+    log(f"times, triplane_splat at the C={C} check shape (N={N}, M={M}, "
+        f"{H}x{W}): {t}")
+    return t
+
+
 def phase_times(torch, gs, G, params, bw):
     """Kernel, plain and F.grid_sample times on the main path's own
     inputs (both passes of one render), and one full render."""
@@ -745,6 +1215,7 @@ def main():
     phase_build()
     gather_err = phase_kernel_vs_plain(torch, gs)
     splat_err, splat_rel = phase_splat_vs_plain(torch, gs)
+    sorted_err, sorted_rel = phase_sorted_vs_plain(torch, gs)
     G, params = full_width_generator(torch)
     with tempfile.TemporaryDirectory(prefix="tgi_chip_smoke_") as tmp:
         res, gen_launches = phase_generate(torch, gs, G, params, tmp)
@@ -753,27 +1224,64 @@ def main():
         phase_generator_grads(torch, gs, G, params)
         phase_small_grads_vs_cpu(torch)
         pti_launches, st = phase_stage2(torch, gs, G, params, tmp)
+        nets = stage1_nets(torch, stage1_target(torch, G, params)[1])
+        st1 = stage1_setup(torch, G, params, nets)
+        per_step, sorted_seen = phase_stage1_grads(torch, gs, st1)
+        runs = {mode: phase_stage1_stage2(torch, gs, G, params, nets, tmp,
+                                          mode) for mode in ("pack", "mxu")}
     gather_times = phase_times(torch, gs, G, params, bw)
     _, seen = phase_step_times(torch, gs, params, st)
     splat_times = phase_splat_times(torch, gs, seen, bw)
+    small_splat = phase_small_splat_times(torch, gs, bw)
+    step1 = {mode: phase_stage1_step_times(torch, gs, st1, mode)
+             for mode in ("pack", "mxu")}
+    sorted_times = phase_sorted_times(torch, gs, sorted_seen, bw)
 
+    def total(run, kernel):
+        return run["stage1"][kernel] + run["stage2"][kernel]
+
+    pack, mxu = runs["pack"], runs["mxu"]
     log(card)
     print(json.dumps({"kernels": [{
         "name": "triplane_gather", "route": "cuda",
         "source": "tgi_torch/csrc/triplane_gather.cu",
         "replaces": "tgi/ops/pallas/gather_vmem.py:62",
-        "launches": pti_launches["triplane_gather"],
+        "launches": total(pack, "triplane_gather"),
         "launches_by_path": {"generate_samples": gen_launches,
                              "run_pti_stage2": pti_launches[
+                                 "triplane_gather"],
+                             "run_pti_stage1": pack["stage1"][
+                                 "triplane_gather"],
+                             "run_pti_stage1_mxu": mxu["stage1"][
                                  "triplane_gather"]},
         "max_abs_err": gather_err, **gather_times}, {
         "name": "triplane_splat", "route": "cuda",
         "source": "tgi_torch/csrc/triplane_splat.cu",
         "replaces": "tgi/ops/pallas/splat_pack.py:192",
         "also_replaces": "tgi/ops/pallas/splat.py:97",
-        "launches": pti_launches["triplane_splat"],
+        "launches": total(pack, "triplane_splat"),
+        "launches_by_path": {"run_pti_stage2": pti_launches[
+                                 "triplane_splat"],
+                             "run_pti_stage1": pack["stage1"][
+                                 "triplane_splat"],
+                             "run_pti_stage1_mxu": mxu["stage1"][
+                                 "triplane_splat"]},
         "max_abs_err": splat_err, "max_rel_err": splat_rel,
-        **splat_times}]}), flush=True)
+        **splat_times, "check_shape_c16": small_splat}, {
+        "name": "triplane_splat_sorted", "route": "cuda",
+        "source": "tgi_torch/csrc/triplane_splat_sorted.cu",
+        "replaces": "tgi/ops/pallas/splat_mxu.py:112",
+        "launches": total(mxu, "triplane_splat_sorted"),
+        "launches_by_path": {"run_pti_stage1": mxu["stage1"][
+                                 "triplane_splat_sorted"],
+                             "run_pti_stage2": mxu["stage2"][
+                                 "triplane_splat_sorted"]},
+        "max_abs_err": sorted_err, "max_rel_err": sorted_rel,
+        **sorted_times}],
+        "stage1_step_ms": {m: v["step"] for m, v in step1.items()},
+        "stage1_launches_per_step": per_step,
+        "stage1_stage2_wall_s": {m: r["wall"] for m, r in runs.items()}}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,8 +2,9 @@
 checkpoints, on the CPU at the tiny config (plane C = 8, 32² backbone,
 16² rays, 8 + 8 samples, SuperresolutionTiny, 64² images). The coach it
 drives is held against tgi's in ``test_torch_coach.py``; here the app's
-own contract: pivots in, ``{name}_G.pt``, PNGs and ``results.json`` out,
-and ``NotImplementedError`` for every part not ported yet.
+own contract: pivots in (or stage 1 without them), ``{name}_G.pt``,
+PNGs and ``results.json`` out, and ``NotImplementedError`` for every part
+not ported yet.
 """
 
 import json
@@ -20,7 +21,7 @@ from tgi_torch.models.generator import (GeneratorConfig, TriPlaneGenerator,
 from tgi_torch.render.cameras import (fov_to_intrinsics, look_at_pose,
                                       pack_camera)
 
-from torch_helpers import TINY, TINY_RK, leaves_with_paths
+from torch_helpers import TINY, TINY_RK, leaves_with_paths, tiny_aux_nets
 
 
 @pytest.fixture(scope="module")
@@ -72,14 +73,18 @@ def test_run_pti_stage2_from_saved_pivots(setup, tmp_path):
     assert data["config"]["plane_channels"] == 8
     assert not all(torch.equal(a, b) for (_, a), (_, b) in zip(
         leaves_with_paths(data["params"]), leaves_with_paths(pt)))
-    # Without pivots (or without asking for them) stage 1 would run.
-    with pytest.raises(NotImplementedError, match="stage 1"):
-        app.run_pti(str(imgs), str(out), G=gt, gen_params=pt,
-                    max_pti_steps=1, device="cpu")
+    # Without pivots (or without asking for them) stage 1 runs and
+    # writes new ones (``test_torch_run_pti_stage1.py`` checks them).
+    pose, vgg, head = tiny_aux_nets()
+    saved = np.load(out / "face_ws.npy")
+    stage1 = dict(G=gt, gen_params=pt, pose_params=pose, vgg_params=vgg,
+                  lpips_head=head, first_inv_steps=1, max_pti_steps=1,
+                  device="cpu")
+    app.run_pti(str(imgs), str(out), **stage1)
+    assert not np.array_equal(np.load(out / "face_ws.npy"), saved)
     os.remove(out / "face_ws.npy")
-    with pytest.raises(NotImplementedError, match="stage 1"):
-        app.run_pti(str(imgs), str(out), G=gt, gen_params=pt,
-                    max_pti_steps=1, use_last_w_pivots=True, device="cpu")
+    app.run_pti(str(imgs), str(out), use_last_w_pivots=True, **stage1)
+    assert np.load(out / "face_ws.npy").shape == saved.shape
 
 
 @pytest.mark.parametrize("flag", ["gen_video", "gen_mesh", "do_evaluation",

@@ -140,11 +140,12 @@ def leaves_with_paths(tree, prefix=()):
         yield prefix, tree
 
 
-def jit_ref(fn):
+def jit_ref(fn, **jit_kwargs):
     """``jax.jit`` for a reference computation: the same HLO, compiled at
     XLA's backend optimisation level 0, which halves the CPU compile of
     the generator's gradient; the tests compare values, not speed."""
-    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0})
+    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0},
+                   **jit_kwargs)
 
 
 def assert_updates_match(tuned, want, start, steps, grads, lr=3e-4):
@@ -178,3 +179,15 @@ def assert_updates_match(tuned, want, start, steps, grads, lr=3e-4):
                                                         err[sure].max())
         moved += int(np.abs(d_want).max() > 0)
     assert moved > 10
+
+
+def tiny_aux_nets(seed=0, camera_dims=4):
+    """Stage 1's auxiliary networks, small: (pose-net params, VGG16
+    params, LPIPS head) as CPU tensors, ``width_mult`` 1/8 and one block
+    per pose-net stage."""
+    from tgi_torch.models import pose_resnet, vgg
+    gen = torch.Generator().manual_seed(seed)
+    return (pose_resnet.resnet34_init(gen, camera_dims, "cpu",
+                                      width_mult=0.125, blocks=(1, 1, 1, 1)),
+            vgg.vgg16_init(gen, "cpu", width_mult=0.125),
+            vgg.lpips_head_init(gen, "cpu", width_mult=0.125))

@@ -1,24 +1,24 @@
-"""Inversion entry point: images -> tuned generator (twin of
-``tgi/apps/run_pti.py``), stage 2 only.
+"""Inversion entry point: images -> latents and cameras -> tuned generator
+(twin of ``tgi/apps/run_pti.py``).
 
 Behavioral parity target: scripts/run_pti.py:16-60 +
-training/coaches/single_id_coach.py:25-117. Per image ``tgi`` runs
+training/coaches/single_id_coach.py:25-117. Per image:
 
-  stage 1  joint w + camera projection (tgi.invert.Projector)
-  stage 2  pivotal tuning of the generator (tgi.invert.PTICoach)
+  stage 1  joint w + camera projection (``tgi_torch.invert.projector``),
+           which writes the pivots ``{name}_ws.npy`` and ``{name}_cam.npy``;
+  stage 2  pivotal tuning of the generator (``tgi_torch.invert.coach``).
 
-This port runs the resume path of ``tgi`` (``use_last_w_pivots``,
-base_coach.py:69-77): the pivots ``{name}_ws.npy`` and ``{name}_cam.npy``
-saved in the output directory are reloaded and only stage 2 runs. It
+With ``use_last_w_pivots`` and both pivot files in the output directory,
+stage 1 is skipped and the pivots are reloaded (base_coach.py:69-77). It
 writes ``{name}_G.pt`` (the tuned generator), ``{name}.png`` and
 ``{name}_pivot.png`` (where Pillow is installed) and ``results.json``.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: stage 1 (ROADMAP Queue A item 7), orbit videos, meshes and
-metrics (items 9, 11, 15), the locality regulariser (item 8), batched
-inversion (item 18), tensorboard and wandb (item 9), and reference
-``.pkl`` generators (item 9). ``click`` and ``PIL`` are imported only
-where they are used.
+skipped: the e4e start of stage 1 and its snapshots (ROADMAP Queue A
+items 9 and 7), orbit videos, meshes and metrics (items 9, 11, 15), the
+locality regulariser (item 8), batched inversion (item 18), tensorboard
+and wandb (item 9), and reference ``.pkl`` generators (item 9). ``click``
+and ``PIL`` are imported only where they are used.
 """
 
 from __future__ import annotations
@@ -33,9 +33,6 @@ import torch
 
 from tgi_torch import default_device
 from tgi_torch.apps.gen_samples import parse_range  # noqa: F401 (tgi's API)
-
-STAGE1 = "stage 1 (projection) is ROADMAP Queue A item 7"
-
 
 def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet "
@@ -65,24 +62,44 @@ def load_generator(path, device):
     return TriPlaneGenerator(cfg), data["params"]
 
 
-def invert_one(name, img, *, G, gen_params, coach, out_dir,
-               use_last_w_pivots=True, save_pivot=True, generator=None):
-    """Stage 2 for one target ``img`` ([1, 3, R, R] in [-1, 1], on the
-    generator's device) named ``name``, from its saved pivots.
+def invert_one(name, img, *, G, gen_params, coach, out_dir, projector=None,
+               target_255=None, use_last_w_pivots=True, save_pivot=True,
+               generator=None):
+    """Both stages for one target ``img`` ([1, 3, R, R] in [-1, 1], on the
+    generator's device) named ``name``.
 
-    Returns (results entry, tuned params, the coach's info dict).
+    With ``use_last_w_pivots`` and both pivot files saved in ``out_dir``,
+    stage 2 starts from them. Otherwise ``projector`` runs stage 1 on
+    ``target_255`` ([1, 3, 256, 256] in [0, 255], the pose net's and
+    LPIPS's input), with ``img`` as the warping loss's target, and the
+    pivots it finds are written as ``tgi`` writes them. The draws of both
+    stages come from ``generator``.
+
+    Returns (results entry, tuned params, the coach's info dict, with the
+    projection's per-step metrics under ``"projection"`` when stage 1
+    ran).
     """
     from tgi_torch.io.checkpoints import save_checkpoint
     t0 = time.time()
     ws_file, cam_file = pivot_files(out_dir, name)
-    if not (use_last_w_pivots and os.path.exists(ws_file)
-            and os.path.exists(cam_file)):
-        raise NotImplementedError(STAGE1)
     dev = img.device
-    ws = torch.from_numpy(np.load(ws_file)).float().to(dev)
-    cam = torch.from_numpy(np.load(cam_file)).float().to(dev)
+    projection = None
+    if use_last_w_pivots and os.path.exists(ws_file) \
+            and os.path.exists(cam_file):
+        ws = torch.from_numpy(np.load(ws_file)).float().to(dev)
+        cam = torch.from_numpy(np.load(cam_file)).float().to(dev)
+    else:
+        if projector is None or target_255 is None:
+            raise ValueError(f"{name}: no saved pivots, and stage 1 needs "
+                             f"a projector and target_255")
+        ws, cam, _, projection = projector.project(
+            target_255, generator=generator, target_full=img)
+        np.save(ws_file, ws.cpu().numpy())
+        np.save(cam_file, cam.cpu().numpy())
 
     tuned, info = coach.tune(gen_params, ws, cam, img, generator=generator)
+    if projection is not None:
+        info["projection"] = projection
 
     if importlib.util.find_spec("PIL") is not None:
         from tgi_torch.utils.image import save_image_grid
@@ -102,59 +119,98 @@ def invert_one(name, img, *, G, gen_params, coach, out_dir,
     return entry, tuned, info
 
 
-def run_pti(image_dir, out_dir, *, G, gen_params, alex_params=None,
-            alex_head=None, lpips_type="alex", use_locality_reg=False,
+def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
+            vgg_params=None, lpips_head=None, e4e_params=None,
+            alex_params=None, alex_head=None, lpips_type="alex",
+            use_locality_reg=False, camera_mode="quat", first_inv_steps=400,
             max_pti_steps=400, gen_video=False, gen_mesh=False,
             do_evaluation=False, save_pivot=True, use_last_w_pivots=False,
             visualize_opt=False, tensorboard=False, use_wandb=False,
             seed=0, batch=1, device=None):
-    """Invert every image in ``image_dir`` from its saved pivots. Returns
-    the per-image results (also written to ``results.json``).
+    """Invert every image in ``image_dir``: stage 1, or its saved pivots
+    with ``use_last_w_pivots``, then stage 2. Returns the per-image
+    results (also written to ``results.json``).
 
-    ``alex_params`` / ``alex_head``: LPIPS weights, tensors on
-    ``device``; absent, they are drawn from ``seed``. The
-    render's draws come from a ``torch.Generator`` seeded with ``seed``.
+    ``pose_params`` (the ResNet-34 pose estimator, its head sized for
+    ``camera_mode``), ``vgg_params`` / ``lpips_head`` (VGG16 and its LPIPS
+    head, stage 1's distance and warp features) and ``alex_params`` /
+    ``alex_head`` (stage 2's AlexNet-LPIPS) are trees of tensors on
+    ``device``; each absent one is drawn at full width from a CPU
+    ``torch.Generator`` seeded with ``seed``. The draws of both stages come
+    from a ``torch.Generator`` on ``device`` seeded with ``seed``.
     """
     from tgi_torch.invert.coach import CoachConfig, PTICoach
+    from tgi_torch.invert.projector import Projector, ProjectorConfig
     from tgi_torch.losses.lpips import make_lpips
+    from tgi_torch.models.pose_resnet import resnet34_init
+    from tgi_torch.models.vgg import lpips_head_init, vgg16_init
     from tgi_torch.utils.image import load_image
 
     device = device or default_device()
-    for flag, what, item in ((gen_video, "gen_video (orbit videos)", 11),
+    for flag, what, item in ((e4e_params is not None,
+                              "the e4e start of stage 1 (models/e4e.py)", 9),
+                             (gen_video, "gen_video (orbit videos)", 11),
                              (gen_mesh, "gen_mesh (apps/shape.py)", 11),
                              (do_evaluation, "do_evaluation (metrics)", 9),
                              (use_locality_reg, "losses/locality.py", 8),
-                             (visualize_opt, "visualize_opt (stage 1)", 7),
+                             (visualize_opt,
+                              "visualize_opt (utils/opt_viz.py)", 7),
                              (tensorboard, "tensorboard", 9),
                              (use_wandb, "wandb", 9),
                              (batch > 1, "batch > 1 (tune_batch)", 18)):
         if flag:
             raise _not_ported(what, item)
     os.makedirs(out_dir, exist_ok=True)
-    lp = make_lpips(lpips_type, alex_params=alex_params, alex_head=alex_head,
-                    generator=torch.Generator().manual_seed(seed),
-                    device=device)
+    weights = torch.Generator().manual_seed(seed)
+    if pose_params is None:
+        pose_params = resnet34_init(
+            weights, output_dims={"2d": 2, "quat": 4, "6d": 6}[camera_mode],
+            device=device)
+    if vgg_params is None:
+        vgg_params = vgg16_init(weights, device)
+    if lpips_head is None:
+        lpips_head = lpips_head_init(weights, device)
+    projector = Projector(G, gen_params, vgg_params, lpips_head, pose_params,
+                          ProjectorConfig(num_steps=first_inv_steps,
+                                          camera_mode=camera_mode))
+    lp = make_lpips(lpips_type, vgg_params=vgg_params, vgg_head=lpips_head,
+                    alex_params=alex_params, alex_head=alex_head,
+                    generator=weights, device=device)
     coach = PTICoach(G, lp, CoachConfig(max_pti_steps=max_pti_steps))
     generator = torch.Generator(device=device).manual_seed(seed)
 
     results = []
     for path in list_images(image_dir):
         name = os.path.splitext(os.path.basename(path))[0]
-        img = torch.from_numpy(load_image(path, size=G.cfg.img_resolution))
+        # load_image gives a transposed (channels-last) view; contiguous
+        # NCHW tensors keep the CPU convolutions on their plain path.
+        img = torch.from_numpy(np.ascontiguousarray(
+            load_image(path, size=G.cfg.img_resolution)))
+        target_255 = torch.from_numpy(np.ascontiguousarray(
+            (load_image(path, size=256) + 1) * 127.5))
         entry, _, _ = invert_one(
             name, img.to(device), G=G, gen_params=gen_params, coach=coach,
-            out_dir=out_dir, use_last_w_pivots=use_last_w_pivots,
-            save_pivot=save_pivot, generator=generator)
+            out_dir=out_dir, projector=projector,
+            target_255=target_255.to(device),
+            use_last_w_pivots=use_last_w_pivots, save_pivot=save_pivot,
+            generator=generator)
         results.append(entry)
     with open(os.path.join(out_dir, "results.json"), "w") as f:
         json.dump(results, f, indent=1)
     return results
 
 
+def load_state_dict(path):
+    """A torch state dict saved with ``torch.save`` (a module's, or one
+    under ``"state_dict"``), read with ``weights_only=True``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return sd.get("state_dict", sd)
+
+
 def main(argv=None):
     """Command line: ``python -m tgi_torch.apps.run_pti --network G.pt
-    --images DIR --outdir DIR --use-last-w-pivots``. The options mirror
-    ``tgi``'s; those of parts not ported yet raise when set."""
+    --images DIR --outdir DIR``. The options mirror ``tgi``'s; those of
+    parts not ported yet raise when set."""
     import click
 
     @click.command()
@@ -163,9 +219,12 @@ def main(argv=None):
     @click.option("--images", "image_dir", required=True)
     @click.option("--outdir", "out_dir", required=True)
     @click.option("--pose-weights", default=None,
-                  help="pose_estimator .pt (stage 1)")
-    @click.option("--e4e-weights", default=None, help="(stage 1)")
-    @click.option("--vgg-weights", default=None, help="(stage 1)")
+                  help="pose_estimator state dict .pt (stage 1)")
+    @click.option("--e4e-weights", default=None,
+                  help="(stage 1's e4e start: not ported yet)")
+    @click.option("--vgg-weights", default=None,
+                  help="torchvision vgg16 state dict .pt, with the lpips "
+                       "head's lin{i} weights where it has them (stage 1)")
     @click.option("--arcface-weights", default=None, help="(--eval)")
     @click.option("--lpips-weights", default=None,
                   help="lpips-package LPIPS(net='alex') state dict .pt")
@@ -177,70 +236,88 @@ def main(argv=None):
                   help="permit random init when weight files are absent "
                        "(smoke tests only — outputs are garbage)")
     @click.option("--camera-mode", default="quat",
-                  type=click.Choice(["2d", "quat", "6d"]), help="(stage 1)")
-    @click.option("--first-inv-steps", default=400, help="(stage 1)")
+                  type=click.Choice(["2d", "quat", "6d"]),
+                  help="the pose head's rotation parameterization")
+    @click.option("--first-inv-steps", default=400,
+                  help="stage-1 projection steps")
     @click.option("--max-pti-steps", default=400)
     @click.option("--batch", default=1)
     @click.option("--use-last-w-pivots/--no-use-last-w-pivots",
                   default=False,
                   help="reload saved (ws, cam) pivots instead of running "
-                       "stage 1 (base_coach.py:69-77); stage 1 is not "
-                       "ported, so this is required")
+                       "stage 1 (base_coach.py:69-77)")
     @click.option("--video/--no-video", "gen_video", default=False)
     @click.option("--mesh/--no-mesh", "gen_mesh", default=False)
     @click.option("--eval/--no-eval", "do_evaluation", default=False)
     @click.option("--visualize-opt/--no-visualize-opt", default=False)
     @click.option("--tensorboard/--no-tensorboard", default=False)
     @click.option("--wandb/--no-wandb", "use_wandb", default=False)
+    @click.option("--seed", default=0,
+                  help="draws of both stages, and the weights of every "
+                       "network without a weight file")
     @click.option("--device", default=default_device())
     def cli(network, image_dir, out_dir, pose_weights, e4e_weights,
             vgg_weights, arcface_weights, lpips_weights, lpips_type,
             use_locality_reg, allow_random_init, camera_mode,
             first_inv_steps, max_pti_steps, batch, use_last_w_pivots,
             gen_video, gen_mesh, do_evaluation, visualize_opt, tensorboard,
-            use_wandb, device):
+            use_wandb, seed, device):
         from tgi_torch.io.from_jax import params_from_numpy
         from tgi_torch.models.alexnet import convert_lpips_alex
+        from tgi_torch.models.pose_resnet import convert_torch_state_dict
+        from tgi_torch.models.vgg import (convert_lpips_head,
+                                          convert_torch_features)
 
-        for path, flag in ((pose_weights, "--pose-weights"),
-                           (e4e_weights, "--e4e-weights"),
-                           (vgg_weights, "--vgg-weights"),
-                           (arcface_weights, "--arcface-weights")):
-            if path:
-                click.echo(f"WARNING: {flag} is read by a part not ported "
-                           f"yet ({STAGE1}; metrics: item 15); ignored")
+        if e4e_weights:
+            raise _not_ported("--e4e-weights (models/e4e.py)", 9)
+        if arcface_weights:
+            click.echo("WARNING: --arcface-weights is read by a part not "
+                       "ported yet (metrics: item 15); ignored")
+
+        def require(path, flag):
+            """A weight file that is named must exist; one that is absent
+            needs --allow-random-init."""
+            if path and not os.path.exists(path):
+                raise click.ClickException(f"{flag}: file not found: {path}")
+            if not path and not allow_random_init:
+                raise click.ClickException(
+                    f"{flag} is required (or pass --allow-random-init for "
+                    f"a smoke run with random weights)")
+            if not path:
+                click.echo(f"WARNING: random-init weights (no {flag}), "
+                           f"drawn from --seed {seed}")
+            return bool(path)
+
         G, gen_params = load_generator(network, device)
+        pose_params = vgg_params = lpips_head = None
+        if require(pose_weights, "--pose-weights"):
+            pose_params = convert_torch_state_dict(
+                load_state_dict(pose_weights), device)
+        if require(vgg_weights, "--vgg-weights"):
+            sd = load_state_dict(vgg_weights)
+            vgg_params = convert_torch_features(sd, device)
+            lpips_head = convert_lpips_head(sd, device) or None
 
         alex_params = alex_head = None
-        if lpips_type == "alex":
-            if lpips_weights:
-                if not os.path.exists(lpips_weights):
-                    raise click.ClickException(
-                        f"--lpips-weights: file not found: {lpips_weights}")
-                sd = torch.load(lpips_weights, map_location="cpu",
-                                weights_only=True)
-                alex_params, alex_head = (
-                    params_from_numpy(t, device)
-                    for t in convert_lpips_alex(sd.get("state_dict", sd)))
-            elif not allow_random_init:
-                raise click.ClickException(
-                    "--lpips-weights is required (or pass "
-                    "--allow-random-init for a smoke run with random "
-                    "weights)")
-            else:
-                click.echo("WARNING: random-init alex-LPIPS "
-                           "(no --lpips-weights)")
+        if lpips_type == "alex" and require(lpips_weights,
+                                            "--lpips-weights"):
+            alex_params, alex_head = (
+                params_from_numpy(t, device) for t in
+                convert_lpips_alex(load_state_dict(lpips_weights)))
 
         for r in run_pti(image_dir, out_dir, G=G, gen_params=gen_params,
-                         alex_params=alex_params, alex_head=alex_head,
-                         lpips_type=lpips_type,
+                         pose_params=pose_params, vgg_params=vgg_params,
+                         lpips_head=lpips_head, alex_params=alex_params,
+                         alex_head=alex_head, lpips_type=lpips_type,
                          use_locality_reg=use_locality_reg,
+                         camera_mode=camera_mode,
+                         first_inv_steps=first_inv_steps,
                          max_pti_steps=max_pti_steps, gen_video=gen_video,
                          gen_mesh=gen_mesh, do_evaluation=do_evaluation,
                          use_last_w_pivots=use_last_w_pivots,
                          visualize_opt=visualize_opt,
                          tensorboard=tensorboard, use_wandb=use_wandb,
-                         batch=batch, device=device):
+                         seed=seed, batch=batch, device=device):
             click.echo(json.dumps(r))
 
     cli.main(args=argv, standalone_mode=True)

@@ -33,6 +33,11 @@
 //   dx = s (d0.x + d1.x + d2.y), dy = s d0.y, dz = s (d1.y + d2.x).
 // No atomics are needed for d_coords, since one group owns the point.
 //
+// With want_dplanes = 0 the kernel skips the memset and the atomics and
+// writes d_coords alone: the point gradient of the TGI_SPLAT=mxu route,
+// whose d_planes comes from triplane_splat_sorted.cu (tgi too computes
+// d_coords apart from its mxu splat, tgi/ops/grid_sample.py:253-260).
+//
 // The order of the atomic adds changes from run to run, so d_planes is
 // not bitwise deterministic; it agrees with the plain version to
 // rounding.
@@ -40,7 +45,8 @@
 // Layouts: g [N, 3, M, C] fp32; coords [N, M, 3] fp32; planes
 // [N*3, H, W, C] fp32 (channels last; read only for d_coords);
 // d_planes [N*3, H, W, C] fp32, zeroed here with cudaMemsetAsync on the
-// same stream; d_coords [N, M, 3] fp32 or null.
+// same stream (null with want_dplanes = 0); d_coords [N, M, 3] fp32 or
+// null.
 //
 // What bounds it. At the full-width render (N = 1, M = 128*128*48 =
 // 786,432, C = 32, 3 planes of 256x256) one pass reads g (302 MB),
@@ -72,7 +78,8 @@ __global__ void triplane_splat_kernel(const float* __restrict__ g,
                                       float* __restrict__ d_planes,
                                       float* __restrict__ d_coords, int H,
                                       int W, int C, long long M,
-                                      long long NM, float scale, int lanes) {
+                                      long long NM, float scale, int lanes,
+                                      bool want_dplanes) {
   const int points_per_block = kThreads / lanes;
   const long long p =
       (long long)blockIdx.x * points_per_block + threadIdx.x / lanes;
@@ -122,7 +129,7 @@ __global__ void triplane_splat_kernel(const float* __restrict__ g,
 
       const long long gp = n * 3 + plane;
       const float* gv_row = g + (gp * M + m) * C;
-      float* dp = d_planes + gp * plane_size;
+      float* dp = want_dplanes ? d_planes + gp * plane_size : nullptr;
       const float* pl = want_coords ? planes + gp * plane_size : nullptr;
       // Offsets of the four corner rows; only valid corners are touched.
       const long long o00 = ((long long)y0 * W + x0) * C;
@@ -132,10 +139,12 @@ __global__ void triplane_splat_kernel(const float* __restrict__ g,
 
       for (int c = lane; c < C; c += lanes) {
         const float gv = __ldg(gv_row + c);
-        if (ok00) atomicAdd(dp + o00 + c, w00 * gv);
-        if (ok01) atomicAdd(dp + o01 + c, w01 * gv);
-        if (ok10) atomicAdd(dp + o10 + c, w10 * gv);
-        if (ok11) atomicAdd(dp + o11 + c, w11 * gv);
+        if (want_dplanes) {
+          if (ok00) atomicAdd(dp + o00 + c, w00 * gv);
+          if (ok01) atomicAdd(dp + o01 + c, w01 * gv);
+          if (ok10) atomicAdd(dp + o10 + c, w10 * gv);
+          if (ok11) atomicAdd(dp + o11 + c, w11 * gv);
+        }
         if (want_coords) {
           const float v00 = ok00 ? __ldg(pl + o00 + c) : 0.f;
           const float v01 = ok01 ? __ldg(pl + o01 + c) : 0.f;
@@ -167,19 +176,25 @@ extern "C" {
 // g [N, 3, M, C], coords [N, M, 3], planes [N*3, H, W, C] or null,
 // d_planes [N*3, H, W, C], d_coords [N, M, 3] or null (both null or both
 // given), all fp32 and contiguous on the current device; scale =
-// 2 / box_warp. Zeroes d_planes and launches on `stream`, allocates
-// nothing, and returns the first CUDA error (0 = ok).
+// 2 / box_warp. With want_dplanes, zeroes d_planes and splats into it;
+// without, d_planes is null and d_coords is required. Launches on
+// `stream`, allocates nothing, and returns the first CUDA error (0 = ok).
 int tgi_triplane_splat_f32(const float* g, const float* coords,
                            const float* planes, float* d_planes,
                            float* d_coords, int N, int H, int W, int C,
-                           long long M, float scale, void* stream) {
+                           long long M, float scale, int want_dplanes,
+                           void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || M <= 0 || N * 3 > 65535 ||
-      (planes == nullptr) != (d_coords == nullptr))
+      (planes == nullptr) != (d_coords == nullptr) ||
+      (want_dplanes != 0) != (d_planes != nullptr) ||
+      (!want_dplanes && d_coords == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t bytes = (size_t)N * 3 * H * W * C * sizeof(float);
-  cudaError_t err = cudaMemsetAsync(d_planes, 0, bytes, s);
-  if (err != cudaSuccess) return (int)err;
+  if (want_dplanes) {
+    const size_t bytes = (size_t)N * 3 * H * W * C * sizeof(float);
+    const cudaError_t err = cudaMemsetAsync(d_planes, 0, bytes, s);
+    if (err != cudaSuccess) return (int)err;
+  }
   int lanes = 1;  // threads per point: next power of two >= C, at most 32
   while (lanes < C && lanes < 32) lanes *= 2;
   const long long NM = (long long)N * M;
@@ -187,7 +202,8 @@ int tgi_triplane_splat_f32(const float* g, const float* coords,
   const long long blocks = (NM + points_per_block - 1) / points_per_block;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   triplane_splat_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      g, coords, planes, d_planes, d_coords, H, W, C, M, NM, scale, lanes);
+      g, coords, planes, d_planes, d_coords, H, W, C, M, NM, scale, lanes,
+      want_dplanes != 0);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,23 @@
-"""Image resizing for the losses (twin of the resize helpers of
-``tgi/losses/warp.py``).
+"""Depth-based warping loss, stage 1's pose signal, and the image resizing
+the losses share (twin of ``tgi/losses/warp.py``).
 
-``calc_warping_loss``, the depth-warping loss of stage 1, comes with the
-projector (ROADMAP Queue A item 7).
+Behavioral parity target: training/warping_loss.py:6-72 +
+explainability_network/loss_functions.py:9-19. Render the canonical view
+from the (detached) latent, back-project the predicted view's depth to
+world points, intersect the rays to the canonical camera with the
+canonical image plane, project to uv, sample canonical VGG features at
+the warped coordinates and take a foreground-masked L1 to the target's
+features. The gradient reaches the camera pose (through the depth's
+world points and the uv grid) and w (through the depth).
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
+
+from tgi_torch.ops.grid_sample import grid_sample_2d
+from tgi_torch.render.rays import depth_to_world, ray_sampler
 
 
 def area_downsample(x, out_size):
@@ -21,19 +31,92 @@ def area_downsample(x, out_size):
 
 
 def bilinear_resize_nchw(x, out_size):
-    """``jax.image.resize(method="linear")`` to ``out_size`` square, for
-    enlargement only.
+    """``jax.image.resize(method="linear")`` to ``out_size`` square.
 
-    When enlarging, jax's triangle kernel with half-pixel centres and
-    edge renormalisation gives the same values as bilinear interpolation
-    with ``align_corners=False`` and an edge clamp. When shrinking, jax
-    widens the kernel (antialiasing) and torch's bilinear does not, so a
-    shrink raises instead of differing.
+    jax's triangle kernel with half-pixel centres and edge
+    renormalisation, widened by the scale when shrinking (antialiasing),
+    is torch's bilinear ``align_corners=False`` with ``antialias=True``:
+    the two agree to about 1e-7 on enlargements and on shrinks, square or
+    not (``tests/test_torch_warp.py``).
     """
-    _, _, h, w = x.shape
-    if out_size < h or out_size < w:
-        raise NotImplementedError(
-            f"bilinear_resize_nchw shrinks {h}x{w} to {out_size}: jax's "
-            f"antialiased shrink is not ported")
     return F.interpolate(x, size=(out_size, out_size), mode="bilinear",
-                         align_corners=False)
+                         align_corners=False, antialias=True)
+
+
+def line_plane_collision(plane_normal, plane_point, ray_direction, ray_point,
+                         epsilon=1e-6):
+    """Batched line-plane intersection (warping_loss.py:58-72)."""
+    ndotu = torch.sum(plane_normal * ray_direction, dim=-1, keepdim=True)
+    w_vec = ray_point - plane_point
+    si = -torch.sum(plane_normal * w_vec, dim=-1, keepdim=True) / ndotu
+    return w_vec + si * ray_direction + plane_point
+
+
+def calc_warping_loss(canonical_image, vgg_feature_fn, pred_ext, init_ext,
+                      intrinsic, depth, target_images):
+    """Warping loss between the predicted-pose view and the canonical view.
+
+    Args:
+        canonical_image: [1, 3, R, R] canonical render in [-1, 1].
+        vgg_feature_fn: images -> feature map [1, C, Hf, Hf]
+            (``tgi_torch.models.vgg.warping_features`` with its weights).
+        pred_ext: [1, 4, 4] predicted camera extrinsics.
+        init_ext: [1, 4, 4] canonical extrinsics.
+        intrinsic: [1, 3, 3].
+        depth: [1, 1, res, res] predicted-view depth map.
+        target_images: [1, 3, R', R'] target in [-1, 1] (the reference
+            feeds the raw target, w_projector.py:109; its feature grid
+            sets the loss resolution, warping_loss.py:49-55).
+
+    Returns:
+        (loss, warped_image): the masked-L1 feature loss and the canonical
+        image warped to the predicted view.
+    """
+    can_images = canonical_image
+    if can_images.shape[2] > 256:
+        can_images = area_downsample(can_images, 256)
+
+    # Foreground mask: closer-than-mean depth (warping_loss.py:13-16).
+    masked_depths = (depth < depth.mean()).to(depth.dtype)
+
+    res = depth.shape[-1]
+    ray_origins2, ray_dirs2 = ray_sampler(pred_ext, intrinsic, res)
+
+    # Surface points in world space, [res², 3].
+    cam_xyz = depth_to_world(ray_origins2, ray_dirs2, depth)[:3].T
+    n_pts = cam_xyz.shape[0]
+    init_trans = init_ext[:, :3, 3]
+    canonical_cam_origin = init_trans.expand(n_pts, 3)
+    vectors = cam_xyz - canonical_cam_origin
+    plane_norm_vector = -canonical_cam_origin
+    one = torch.tensor([0., 0., 1., 1.], dtype=init_ext.dtype,
+                       device=init_ext.device)
+    plane_point = (init_ext.reshape(4, 4) @ one)[None, :3].expand(n_pts, 3)
+
+    intersections = line_plane_collision(plane_norm_vector, plane_point,
+                                         vectors, canonical_cam_origin)
+    ones = torch.ones((n_pts, 1), dtype=intersections.dtype,
+                      device=intersections.device)
+    intersections1 = torch.cat([intersections, ones], dim=-1).T
+
+    target_features = vgg_feature_fn(target_images)
+    synth_features = vgg_feature_fn(can_images)
+
+    # World -> canonical camera -> normalized uv (warping_loss.py:39-43).
+    w2c = torch.linalg.inv(init_ext.reshape(4, 4))
+    pred_uv = (w2c @ intersections1)[:3].T
+    pred_uv = pred_uv / pred_uv[:, 2:]
+    pred_uv = (intrinsic.reshape(3, 3) @ pred_uv.T)[:2].T
+    pred_uv = (pred_uv - 0.5) * 2
+
+    feat_res = target_features.shape[-1]
+    uv_img = pred_uv.reshape(1, res, res, 2)
+    uv_resized = bilinear_resize_nchw(uv_img.permute(0, 3, 1, 2), feat_res)
+    uv_resized = uv_resized.permute(0, 2, 3, 1)
+    warped_feature = grid_sample_2d(synth_features, uv_resized)
+    warped_image = grid_sample_2d(can_images, uv_img)
+    mask = bilinear_resize_nchw(masked_depths, feat_res)
+
+    # Masked L1 (photometric_reconstruction_loss).
+    loss = torch.abs((warped_feature - target_features) * mask).mean()
+    return loss, warped_image

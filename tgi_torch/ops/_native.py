@@ -24,7 +24,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("triplane_gather.cu", "triplane_splat.cu")
+SOURCES = ("triplane_gather.cu", "triplane_splat.cu",
+           "triplane_splat_sorted.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -82,14 +83,26 @@ def build_all() -> dict[str, str]:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
-# Entry point of each source and its C signature (all return an int error).
+# Entry points of each source and their C signatures (all return an int
+# error).
 ENTRY_POINTS = {
-    # planes, coords, out, N, H, W, C, M, scale, stream
-    "triplane_gather.cu": ("tgi_triplane_gather_f32",
-                           [_P, _P, _P, _I, _I, _I, _I, _L, _F, _P]),
-    # g, coords, planes, d_planes, d_coords, N, H, W, C, M, scale, stream
-    "triplane_splat.cu": ("tgi_triplane_splat_f32",
-                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _F, _P]),
+    "triplane_gather.cu": {
+        # planes, coords, out, N, H, W, C, M, scale, stream
+        "tgi_triplane_gather_f32": [_P, _P, _P, _I, _I, _I, _I, _L, _F, _P],
+    },
+    "triplane_splat.cu": {
+        # g, coords, planes, d_planes, d_coords, N, H, W, C, M, scale,
+        # want_dplanes, stream
+        "tgi_triplane_splat_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
+                                   _F, _I, _P],
+    },
+    "triplane_splat_sorted.cu": {
+        # coords, cells, N, H, W, M, scale, stream
+        "tgi_splat_cells_f32": [_P, _P, _I, _I, _I, _L, _F, _P],
+        # g, coords, order, offsets, d_planes, N, H, W, C, M, scale, stream
+        "tgi_splat_segments_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
+                                   _F, _P],
+    },
 }
 
 
@@ -98,10 +111,10 @@ def library(src: str) -> ctypes.CDLL:
     with _lock:
         if src not in _libs:
             lib = ctypes.CDLL(build_all()[src])
-            name, argtypes = ENTRY_POINTS[src]
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for name, argtypes in ENTRY_POINTS[src].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.tgi_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tgi_cuda_error_string.restype = ctypes.c_char_p
             _libs[src] = lib

@@ -26,6 +26,17 @@ formula folded back through :func:`project_onto_planes` and the
   ``tgi/ops/pallas/splat.py::plane_splat`` and fuses the ``d_coords``
   formula.
 
+``TGI_SPLAT=mxu``, read at each backward as ``tgi`` reads it
+(``grid_sample.py:262``), takes the plane gradient from a sorted
+segmented reduction instead, bitwise deterministic:
+
+* :func:`triplane_splat_sorted_plain` — plain PyTorch: the same entry
+  cells, ``torch.sort`` and ``torch.searchsorted``, and a segment sum.
+* :func:`triplane_splat_sorted_cuda` — the hand-written CUDA kernels
+  ``csrc/triplane_splat_sorted.cu``, which replace the TPU kernel
+  ``tgi/ops/pallas/splat_mxu.py::plane_splat_mxu``; ``d_coords`` then
+  comes from ``triplane_splat.cu`` with its ``d_planes`` switched off.
+
 :func:`sample_triplanes` is one ``torch.autograd.Function``,
 :class:`TriplaneSample`, on both devices: a CPU tensor takes the plain
 versions, a CUDA tensor the kernels. A CUDA tensor never takes a plain
@@ -35,12 +46,14 @@ version: the kernel launches or the call raises.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 # Launches of the CUDA kernels since the counts were last set to 0.
-LAUNCHES = 0          # triplane_gather
-SPLAT_LAUNCHES = 0    # triplane_splat
+LAUNCHES = 0                 # triplane_gather
+SPLAT_LAUNCHES = 0           # triplane_splat
+SORTED_SPLAT_LAUNCHES = 0    # triplane_splat_sorted (one per call)
 
 
 def _unnormalize(coord, size):
@@ -84,6 +97,25 @@ def grid_sample_points(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     top = v00 + (v01 - v00) * wx
     bot = v10 + (v11 - v10) * wx
     return top + (bot - top) * wy
+
+
+def grid_sample_2d(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample ``img`` ``[N, C, H, W]`` at ``grid``
+    ``[N, Hg, Wg, 2]`` (x, y in [-1, 1]) -> ``[N, C, Hg, Wg]``.
+
+    ``torch.nn.functional.grid_sample`` semantics (bilinear,
+    ``align_corners=False``, zero padding), through the plain 4-corner
+    :func:`grid_sample_points` and autograd, so the gradient reaches both
+    the image and the grid: the warping loss samples at a grid that the
+    camera moves. ``tgi``'s ``_grid_sample_points_dense``
+    (``tgi/ops/grid_sample.py:304``, taken at :359 only on a TPU, for
+    H·W <= 4096 and C >= 64) is a one-hot matmul form of the same numbers,
+    made for a chip without a fast gather; it has no route here.
+    """
+    N, C, H, W = img.shape
+    _, Hg, Wg, _ = grid.shape
+    out = grid_sample_points(img, grid.reshape(N, Hg * Wg, 2))
+    return out.permute(0, 2, 1).reshape(N, C, Hg, Wg)
 
 
 def project_onto_planes(coords: torch.Tensor) -> torch.Tensor:
@@ -179,7 +211,8 @@ def _check_splat_args(planes_cl, coords, g):
     return N, H, W, C, M
 
 
-def triplane_splat_plain(planes_cl, coords, g, box_warp, need_coords):
+def triplane_splat_plain(planes_cl, coords, g, box_warp, need_coords,
+                         want_dplanes=True):
     """Plain PyTorch backward of tri-plane sampling (the splat kernel's
     reference, and what a CPU tensor takes).
 
@@ -187,7 +220,8 @@ def triplane_splat_plain(planes_cl, coords, g, box_warp, need_coords):
     the point gradient). coords: ``[N, M, 3]`` world points. g:
     ``[N, 3, M, C]`` gradient of the sampled features.
 
-    Returns ``(d_planes [N, 3, H, W, C], d_coords [N, M, 3] or None)``.
+    Returns ``(d_planes [N, 3, H, W, C] or None without want_dplanes,
+    d_coords [N, M, 3] or None)``.
     ``d_planes`` scatter-adds ``w4 = ((1-wx)(1-wy), wx(1-wy), (1-wx)wy,
     wx·wy)`` times ``g`` into the four corners, skipping corners outside
     the plane. ``d_coords`` is ``_gsp_bwd``'s formula
@@ -202,7 +236,8 @@ def triplane_splat_plain(planes_cl, coords, g, box_warp, need_coords):
     gg = g.reshape(G, M, C).float()
     flat = planes_cl.reshape(G * H * W, C) if need_coords else None
     base = (torch.arange(G, device=g.device) * (H * W))[:, None]
-    d_flat = torch.zeros((G * H * W, C), dtype=torch.float32, device=g.device)
+    d_flat = (torch.zeros((G * H * W, C), dtype=torch.float32,
+                          device=g.device) if want_dplanes else None)
     corners = {}
     for (dy, dx), w in (((0, 0), (1 - wx) * (1 - wy)),
                         ((0, 1), wx * (1 - wy)),
@@ -211,10 +246,11 @@ def triplane_splat_plain(planes_cl, coords, g, box_warp, need_coords):
         yy, xx = y0 + dy, x0 + dx
         ok = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
         cell = base + yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1)
-        d_flat.index_add_(0, cell[ok], (w * gg)[ok])
+        if want_dplanes:
+            d_flat.index_add_(0, cell[ok], (w * gg)[ok])
         if need_coords:
             corners[dy, dx] = flat[cell] * ok[..., None].to(flat.dtype)
-    d_planes = d_flat.reshape(N, 3, H, W, C)
+    d_planes = d_flat.reshape(N, 3, H, W, C) if want_dplanes else None
     if not need_coords:
         return d_planes, None
     v00, v01 = corners[0, 0], corners[0, 1]
@@ -231,7 +267,8 @@ def triplane_splat_plain(planes_cl, coords, g, box_warp, need_coords):
     return d_planes, d_coords
 
 
-def triplane_splat_cuda(planes_cl, coords, g, box_warp, need_coords):
+def triplane_splat_cuda(planes_cl, coords, g, box_warp, need_coords,
+                        want_dplanes=True):
     """:func:`triplane_splat_plain` through the CUDA kernel.
 
     All arguments float32 on one CUDA device; ``g`` (and ``planes_cl``,
@@ -255,10 +292,13 @@ def triplane_splat_cuda(planes_cl, coords, g, box_warp, need_coords):
         raise ValueError("coords must be contiguous")
     if N * 3 > 65535 or M >= 2 ** 31:
         raise ValueError(f"shape out of the kernel's range: N={N}, M={M}")
+    if not (want_dplanes or need_coords):
+        raise ValueError("the splat was asked for neither output")
     if need_coords:
         planes_cl = planes_cl.contiguous()
     g = g.contiguous()
-    d_planes = torch.empty((N, 3, H, W, C), dtype=torch.float32, device=dev)
+    d_planes = (torch.empty((N, 3, H, W, C), dtype=torch.float32, device=dev)
+                if want_dplanes else None)
     d_coords = (torch.empty((N, M, 3), dtype=torch.float32, device=dev)
                 if need_coords else None)
     lib = _native.library("triplane_splat.cu")
@@ -266,15 +306,152 @@ def triplane_splat_cuda(planes_cl, coords, g, box_warp, need_coords):
     err = lib.tgi_triplane_splat_f32(
         ctypes.c_void_p(g.data_ptr()), ctypes.c_void_p(coords.data_ptr()),
         ctypes.c_void_p(planes_cl.data_ptr() if need_coords else None),
-        ctypes.c_void_p(d_planes.data_ptr()),
+        ctypes.c_void_p(d_planes.data_ptr() if want_dplanes else None),
         ctypes.c_void_p(d_coords.data_ptr() if need_coords else None),
-        N, H, W, C, M, ctypes.c_float(2.0 / box_warp),
+        N, H, W, C, M, ctypes.c_float(2.0 / box_warp), int(want_dplanes),
         ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"triplane_splat launch failed: "
                            f"{_native.error_string(err)} ({err})")
     SPLAT_LAUNCHES += 1
     return d_planes, d_coords
+
+
+def _check_sorted_args(coords, g, H, W):
+    """Shapes of the sorted splat's arguments -> (N, C, M)."""
+    if coords.ndim != 3 or coords.shape[2] != 3:
+        raise ValueError(f"coords must be [N, M, 3], got "
+                         f"{tuple(coords.shape)}")
+    N, M, _ = coords.shape
+    if g.ndim != 4 or tuple(g.shape[:3]) != (N, 3, M):
+        raise ValueError(f"g must be [{N}, 3, {M}, C], got {tuple(g.shape)}")
+    if H <= 0 or W <= 0:
+        raise ValueError(f"empty plane {H}x{W}")
+    return N, g.shape[3], M
+
+
+def splat_cells_plain(coords, box_warp, H, W):
+    """Each (plane, point, corner) entry's cell: ``[N*3, 4M]`` int32,
+    entry ``4m + k`` for corner ``k = 2 dy + dx`` of point ``m``, the
+    sentinel ``H*W`` for a corner outside the plane. The corners are the
+    gather's (:func:`_point_indices`)."""
+    N, M, _ = coords.shape
+    proj = project_onto_planes((2.0 / box_warp) * coords.float())
+    x0, y0, _, _ = _point_indices(proj.reshape(N * 3, M, 2), H, W)
+    cells = []
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        yy, xx = y0 + dy, x0 + dx
+        ok = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+        cells.append(torch.where(ok, yy * W + xx, H * W))
+    return torch.stack(cells, dim=-1).reshape(N * 3, 4 * M).int()
+
+
+def splat_sort(cells, H, W):
+    """The sorted splat's prep after the cells: each plane's entries in
+    cell order (``order``, int64 ``[N*3, 4M]``, stable) and each cell's
+    first entry in that order (``offsets``, int32 ``[N*3, H*W + 1]``)."""
+    cell_s, order = torch.sort(cells, dim=-1, stable=True)
+    bounds = torch.arange(H * W + 1, dtype=torch.int32, device=cells.device)
+    offsets = torch.searchsorted(
+        cell_s, bounds.expand(cells.shape[0], -1).contiguous(),
+        out_int32=True)
+    return order, offsets
+
+
+def triplane_splat_sorted_plain(coords, g, box_warp, H, W):
+    """Plain PyTorch plane gradient of tri-plane sampling as a sorted
+    segmented reduction (the reference of the sorted splat kernels, and
+    what a CPU tensor takes under ``TGI_SPLAT=mxu``).
+
+    coords: ``[N, M, 3]`` world points; g: ``[N, 3, M, C]`` gradient of
+    the sampled features. Returns ``d_planes [N, 3, H, W, C]``: the
+    entries of :func:`splat_cells_plain`, sorted by :func:`splat_sort`,
+    their corner weights times ``g`` summed per cell segment in entry
+    order.
+    """
+    N, C, M = _check_sorted_args(coords, g, H, W)
+    G = N * 3
+    order, offsets = splat_sort(splat_cells_plain(coords, box_warp, H, W),
+                                H, W)
+    proj = project_onto_planes((2.0 / box_warp) * coords.float())
+    _, _, wx, wy = _point_indices(proj.reshape(G, M, 2), H, W)
+    w4 = torch.cat([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy,
+                    wx * wy], dim=-1).reshape(G, 4 * M)
+    w_s = torch.gather(w4, 1, order)
+    g_s = torch.gather(g.reshape(G, M, C).float(), 1,
+                       (order // 4)[..., None].expand(-1, -1, C))
+    # Segments: H*W cells, then the sentinel entries, per plane.
+    lengths = torch.cat([offsets.diff(dim=1),
+                         4 * M - offsets[:, -1:]], dim=1)
+    d = torch.segment_reduce((w_s[..., None] * g_s).reshape(G * 4 * M, C),
+                             "sum", lengths=lengths.reshape(-1), axis=0,
+                             unsafe=True)
+    return d.reshape(G, H * W + 1, C)[:, :H * W].reshape(N, 3, H, W, C)
+
+
+def splat_segments_cuda(coords, g, order, offsets, box_warp, H, W):
+    """The sorted splat's segment kernel (``triplane_splat_sorted.cu``)
+    on the prep's ``order`` and ``offsets``: ``d_planes
+    [N, 3, H, W, C]``."""
+    from tgi_torch.ops import _native
+    N, C, M = _check_sorted_args(coords, g, H, W)
+    d_planes = torch.empty((N, 3, H, W, C), dtype=torch.float32,
+                           device=g.device)
+    g = g.contiguous()
+    lib = _native.library("triplane_splat_sorted.cu")
+    err = lib.tgi_splat_segments_f32(
+        ctypes.c_void_p(g.data_ptr()), ctypes.c_void_p(coords.data_ptr()),
+        ctypes.c_void_p(order.data_ptr()),
+        ctypes.c_void_p(offsets.data_ptr()),
+        ctypes.c_void_p(d_planes.data_ptr()), N, H, W, C, M,
+        ctypes.c_float(2.0 / box_warp),
+        ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"splat_segments launch failed: "
+                           f"{_native.error_string(err)} ({err})")
+    return d_planes
+
+
+def splat_prep_cuda(coords, box_warp, H, W):
+    """The sorted splat's prep on the card: the cell kernel
+    (``triplane_splat_sorted.cu``), then :func:`splat_sort`."""
+    from tgi_torch.ops import _native
+    N, M, _ = coords.shape
+    cells = torch.empty((N * 3, 4 * M), dtype=torch.int32,
+                        device=coords.device)
+    lib = _native.library("triplane_splat_sorted.cu")
+    err = lib.tgi_splat_cells_f32(
+        ctypes.c_void_p(coords.data_ptr()), ctypes.c_void_p(cells.data_ptr()),
+        N, H, W, M, ctypes.c_float(2.0 / box_warp),
+        ctypes.c_void_p(torch.cuda.current_stream(coords.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"splat_cells launch failed: "
+                           f"{_native.error_string(err)} ({err})")
+    return splat_sort(cells, H, W)
+
+
+def triplane_splat_sorted_cuda(coords, g, box_warp, H, W):
+    """:func:`triplane_splat_sorted_plain` through the CUDA kernels: no
+    atomics, so ``d_planes`` is the same bits from run to run.
+
+    coords (contiguous) and g float32 on one CUDA device."""
+    global SORTED_SPLAT_LAUNCHES
+    dev = g.device
+    if dev.type != "cuda" or coords.device != dev:
+        raise ValueError(f"coords on {coords.device}, g on {dev}: both must "
+                         f"be on one CUDA device")
+    if coords.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(f"float32 only, got {coords.dtype}, {g.dtype}")
+    N, C, M = _check_sorted_args(coords, g, H, W)
+    if not coords.is_contiguous():
+        raise ValueError("coords must be contiguous")
+    if N * 3 > 65535 or 4 * M >= 2 ** 31 or H * W >= 2 ** 31 - 1:
+        raise ValueError(f"shape out of the kernel's range: N={N}, M={M}, "
+                         f"{H}x{W}")
+    order, offsets = splat_prep_cuda(coords, box_warp, H, W)
+    d_planes = splat_segments_cuda(coords, g, order, offsets, box_warp, H, W)
+    SORTED_SPLAT_LAUNCHES += 1
+    return d_planes
 
 
 class TriplaneSample(torch.autograd.Function):
@@ -300,10 +477,26 @@ class TriplaneSample(torch.autograd.Function):
     def backward(ctx, g):
         planes_cl, coords = ctx.saved_tensors
         need_coords = ctx.needs_input_grad[1]
-        splat = (triplane_splat_cuda if g.device.type == "cuda"
-                 else triplane_splat_plain)
-        d_planes, d_coords = splat(planes_cl, coords, g, ctx.box_warp,
-                                   need_coords)
+        cuda = g.device.type == "cuda"
+        splat = triplane_splat_cuda if cuda else triplane_splat_plain
+        mode = os.environ.get("TGI_SPLAT", "pack")
+        if mode in ("pack", "v1"):
+            # One kernel serves tgi's packed (#4) and serialized (#5)
+            # splats.
+            d_planes, d_coords = splat(planes_cl, coords, g, ctx.box_warp,
+                                       need_coords)
+        elif mode == "mxu":
+            H, W = planes_cl.shape[2:4]
+            sorted_splat = (triplane_splat_sorted_cuda if cuda
+                            else triplane_splat_sorted_plain)
+            d_planes = sorted_splat(coords, g, ctx.box_warp, H, W)
+            d_coords = None
+            if need_coords:
+                _, d_coords = splat(planes_cl, coords, g, ctx.box_warp, True,
+                                    want_dplanes=False)
+        else:
+            raise ValueError(f"TGI_SPLAT={mode!r}: expected 'pack', 'v1' "
+                             f"or 'mxu'")
         return d_planes.permute(0, 1, 4, 2, 3), d_coords, None
 
 

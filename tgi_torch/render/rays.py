@@ -52,3 +52,19 @@ def ray_sampler(cam2world, intrinsics, resolution: int):
     ray_dirs = normalize_vecs(world_rel - cam_locs_world[:, None, :])
     ray_origins = cam_locs_world[:, None, :].repeat(1, M, 1)
     return ray_origins, ray_dirs
+
+
+def depth_to_world(ray_origins, ray_dirs, depth):
+    """Back-project a depth map to homogeneous world points.
+
+    ray_origins/ray_dirs: [1, res*res, 3]; depth: [1, res, res] (or
+    [res, res], or [1, 1, res, res]). Returns [4, res*res]
+    (ray_sampler.py:75-93).
+    """
+    res = depth.shape[-1]
+    o = ray_origins.reshape(res * res, 3)
+    d = ray_dirs.reshape(res * res, 3)
+    z = depth.reshape(res * res, 1)
+    xyz = o + d * z
+    ones = torch.ones((res * res, 1), dtype=xyz.dtype, device=xyz.device)
+    return torch.cat([xyz, ones], dim=-1).T
