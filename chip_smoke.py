@@ -32,13 +32,17 @@ Phases, each fatal on failure:
   7. the port's stage-1 path (projection) at full width, with VGG16 and
      the pose ResNet-34 drawn from a seed: one step's gradients (w, noise,
      pose net, translation) through the kernels against the plain
-     sampler, a non-zero pose-net gradient (the camera's gradient crosses
-     the splat's ``d_coords``), the same step under ``TGI_SPLAT=mxu``
-     against the default route, and the launches per step;
+     sampler, a non-zero pose-net gradient, non-zero ``d_coords`` from
+     the splat and their share of the pose-net gradient (the same step
+     with the render's sample points detached) well above the kernels'
+     error, the same step under ``TGI_SPLAT=mxu`` against the default
+     route, and the launches per step;
   8. stage 1 + stage 2 through ``run_pti``'s ``invert_one`` without
-     pivots, in each splat mode: 60 projection steps (50 preheat + 10
-     joint) on a target rendered from another latent and yaw, the pivot
-     files written and read by stage 2, 10 tuning steps;
+     pivots, twice in each splat mode: 60 projection steps (50 preheat +
+     10 joint) on a target rendered from another latent and yaw, the
+     pivot files written and read by stage 2, 10 tuning steps; the
+     spread of the loss trajectories between two runs of one mode and
+     between the modes;
   9. times: each kernel per launch (CUDA events, median) beside its
      plain version, a PyTorch library call computing the same function
      and the card's bound; one full-width render; one tuning step split
@@ -619,13 +623,16 @@ def phase_stage2(torch, gs, G, params, tmp):
 
 
 def counts(gs):
+    """Launches per kernel; the sorted splat's two kernels apart."""
     return {"triplane_gather": gs.LAUNCHES,
             "triplane_splat": gs.SPLAT_LAUNCHES,
-            "triplane_splat_sorted": gs.SORTED_SPLAT_LAUNCHES}
+            "triplane_splat_sorted": gs.SORTED_SPLAT_LAUNCHES,
+            "triplane_splat_cells": gs.SPLAT_CELLS_LAUNCHES}
 
 
 def zero_counts(gs):
     gs.LAUNCHES = gs.SPLAT_LAUNCHES = gs.SORTED_SPLAT_LAUNCHES = 0
+    gs.SPLAT_CELLS_LAUNCHES = 0
 
 
 class splat_route:
@@ -711,21 +718,30 @@ def _named_leaves(tree, prefix=""):
         yield prefix[:-1], tree
 
 
+def _group_vec(torch, grads, group):
+    """Every tensor of ``group`` in ``grads``, flattened into one."""
+    return torch.cat([t.flatten() for k, t in grads.items()
+                      if k.split(".")[0] == group])
+
+
 def _group_err(torch, a, b, group):
     """Norm-wise error of a against b over every tensor of ``group``,
     and b's norm."""
-    keys = [k for k in b if k.split(".")[0] == group]
-    va = torch.cat([a[k].flatten() for k in keys])
-    vb = torch.cat([b[k].flatten() for k in keys])
-    return _norm_err(va, vb), vb.norm().item()
+    vb = _group_vec(torch, b, group)
+    return _norm_err(_group_vec(torch, a, group), vb), vb.norm().item()
 
 
 def phase_stage1_grads(torch, gs, st):
     """One full-width stage-1 step's gradients (w, every noise buffer,
     every pose-net leaf, the translation) through the kernels, again,
     through the plain sampler's autograd, and under ``TGI_SPLAT=mxu``,
-    with deterministic cuDNN algorithms. Returns the launches per step
-    and the sorted splat's inputs (the main path's own)."""
+    with deterministic cuDNN algorithms. The camera reaches the render
+    only through the predicted view's sample points, so the step again
+    with those points detached (both samplers) isolates the share of the
+    pose-net gradient that crosses the splat's ``d_coords``; that share
+    must be well above the kernels' error, so that the comparison sees
+    ``d_coords``. Returns the launches per step and the sorted splat's
+    inputs (the main path's own)."""
     import tgi_torch.render.renderer as renderer
     proj, state = st["proj"], st["state"]
     named = dict(_named_leaves(state))
@@ -734,8 +750,14 @@ def phase_stage1_grads(torch, gs, st):
     flags, seen = [], []
 
     def record_splat(*args, **kw):
-        flags.append((args[4], kw.get("want_dplanes", True)))
-        return real["triplane_splat_cuda"](*args, **kw)
+        out = real["triplane_splat_cuda"](*args, **kw)
+        flags.append((args[4], kw.get("want_dplanes", True),
+                      None if out[1] is None else out[1].abs().max().item()))
+        return out
+
+    def detached(sampler):
+        return lambda planes, coords, box_warp: sampler(
+            planes, coords.detach(), box_warp)
 
     def record_sorted(*args):
         seen.append(args)
@@ -765,31 +787,53 @@ def phase_stage1_grads(torch, gs, st):
         zero_counts(gs)
         kernel = grads()
         per_step = counts(gs)
-        with_coords = sum(need for need, _ in flags)
+        with_coords = [top for need, _, top in flags if need]
         check(per_step == {"triplane_gather": 4, "triplane_splat": 4,
-                           "triplane_splat_sorted": 0} and with_coords == 2,
-              f"launches per stage-1 step {per_step}, {with_coords} with "
-              f"d_coords; expected 4 gathers and 4 splats, 2 with d_coords")
+                           "triplane_splat_sorted": 0,
+                           "triplane_splat_cells": 0}
+              and len(with_coords) == 2,
+              f"launches per stage-1 step {per_step}, {len(with_coords)} "
+              f"with d_coords; expected 4 gathers and 4 splats, 2 with "
+              f"d_coords")
+        check(all(top > 0 for top in with_coords),
+              f"the splat gave d_coords of max |.| {with_coords}")
         again = grads()
         before = counts(gs)
         plain = grads(sampler=gs.sample_triplanes_plain)
         check(counts(gs) == before, "the plain sampler launched a kernel")
+        kernel_det = grads(sampler=detached(gs.sample_triplanes))
+        plain_det = grads(sampler=detached(gs.sample_triplanes_plain))
         zero_counts(gs)
         flags.clear()
         mxu = grads("mxu")
         per_step_mxu = counts(gs)
-        coords_only = sum(need and not want for need, want in flags)
+        coords_only = sum(need and not want for need, want, _ in flags)
         check(per_step_mxu == {"triplane_gather": 4, "triplane_splat": 2,
-                               "triplane_splat_sorted": 4}
+                               "triplane_splat_sorted": 4,
+                               "triplane_splat_cells": 4}
               and coords_only == 2,
               f"launches per stage-1 step under TGI_SPLAT=mxu "
               f"{per_step_mxu}; expected 4 gathers, 4 sorted splats and 2 "
               f"d_coords-only splats")
     finally:
         torch.backends.cudnn.deterministic = False
-    log(f"stage-1 step launches: default {per_step} ({with_coords} splats "
-        f"with d_coords); TGI_SPLAT=mxu {per_step_mxu} ({coords_only} "
-        f"splats for d_coords only)")
+    log(f"stage-1 step launches: default {per_step} ({len(with_coords)} "
+        f"splats with d_coords, max |d_coords| {with_coords}); TGI_SPLAT=mxu "
+        f"{per_step_mxu} ({coords_only} splats for d_coords only)")
+    pose = _group_vec(torch, kernel, "pose")
+    share = pose - _group_vec(torch, kernel_det, "pose")
+    share_plain = (_group_vec(torch, plain, "pose")
+                   - _group_vec(torch, plain_det, "pose"))
+    gap = (pose - _group_vec(torch, plain, "pose")).norm().item()
+    log(f"pose-net gradient through the splat's d_coords (the step minus "
+        f"the step with the sample points detached): norm "
+        f"{share.norm().item():.4g} of the whole {pose.norm().item():.4g}; "
+        f"kernels vs plain sampler, whole gradient: abs norm err "
+        f"{gap:.3g}; the d_coords share, kernels vs plain: norm err "
+        f"{_norm_err(share, share_plain):.3g}")
+    check(share.norm().item() > 0 and share.norm().item() >= 100 * gap,
+          f"the pose-net gradient's d_coords share {share.norm().item()} is "
+          f"not well above the kernels' error {gap}")
     worst = 0.0
     for group in ("w", "noise", "pose", "translation"):
         err, scale = _group_err(torch, kernel, plain, group)
@@ -812,12 +856,12 @@ def phase_stage1_grads(torch, gs, st):
     return {"default": per_step, "mxu": per_step_mxu, "worst": worst}, seen
 
 
-def phase_stage1_stage2(torch, gs, G, params, nets, tmp, mode):
+def phase_stage1_stage2(torch, gs, G, params, nets, tmp, mode, label):
     """Stage 1 and stage 2 through ``run_pti``'s ``invert_one`` without
     pivots, with ``TGI_SPLAT=mode``: STAGE1_STEPS projection steps on a
     target rendered from seed 2's latent at yaw -0.25, then PTI_STEPS
-    tuning steps around the pivots it wrote. Returns the launches of
-    each stage."""
+    tuning steps around the pivots it wrote, in the output directory
+    ``label``. Returns the launches of each stage and the losses."""
     import numpy as np
     from tgi_torch.apps.run_pti import invert_one, pivot_files
     from tgi_torch.invert.coach import CoachConfig, PTICoach
@@ -825,7 +869,7 @@ def phase_stage1_stage2(torch, gs, G, params, nets, tmp, mode):
     from tgi_torch.losses.lpips import make_lpips
     pose, vgg, head = nets
     img, t255 = stage1_target(torch, G, params)
-    out = os.path.join(tmp, f"stage1_{mode}")
+    out = os.path.join(tmp, f"stage1_{label}")
     os.makedirs(out)
     proj = Projector(G, params, vgg, head, pose,
                      ProjectorConfig(num_steps=STAGE1_STEPS))
@@ -884,14 +928,68 @@ def phase_stage1_stage2(torch, gs, G, params, nets, tmp, mode):
     sorted_mode = mode == "mxu"
     want1 = {"triplane_gather": 4 * STAGE1_STEPS,
              "triplane_splat": (2 if sorted_mode else 4) * STAGE1_STEPS,
-             "triplane_splat_sorted": 4 * STAGE1_STEPS if sorted_mode else 0}
+             "triplane_splat_sorted": 4 * STAGE1_STEPS if sorted_mode else 0,
+             "triplane_splat_cells": 4 * STAGE1_STEPS if sorted_mode else 0}
     want2 = {"triplane_gather": 2 * (PTI_STEPS + png_renders),
              "triplane_splat": 0 if sorted_mode else 2 * PTI_STEPS,
-             "triplane_splat_sorted": 2 * PTI_STEPS if sorted_mode else 0}
+             "triplane_splat_sorted": 2 * PTI_STEPS if sorted_mode else 0,
+             "triplane_splat_cells": 2 * PTI_STEPS if sorted_mode else 0}
     check(stage1 == want1 and stage2 == want2,
           f"launches stage 1 {stage1}, stage 2 {stage2}; expected {want1}, "
           f"{want2}")
-    return {"stage1": stage1, "stage2": stage2, "wall": wall}
+    return {"stage1": stage1, "stage2": stage2, "wall": wall,
+            "losses1": proj_losses, "losses2": info["losses"]}
+
+
+def phase_route_spread(runs):
+    """How far two ``invert_one`` runs part: two runs of one splat mode
+    (run-to-run order of the fused splat's atomics and of cuDNN's
+    default algorithms; the sorted splat repeats its bits) and the two
+    modes. Logs, per pair, the first stage-1 step whose loss differs and
+    the largest loss difference of each stage."""
+    for a, b in (("pack", "pack_again"), ("mxu", "mxu_again"),
+                 ("pack", "mxu")):
+        d1 = [abs(x - y) for x, y in zip(runs[a]["losses1"],
+                                         runs[b]["losses1"])]
+        d2 = [abs(x - y) for x, y in zip(runs[a]["losses2"],
+                                         runs[b]["losses2"])]
+        first = next((i for i, d in enumerate(d1) if d > 0), None)
+        log(f"stage-1/2 loss spread, {a} vs {b}: first differing stage-1 "
+            f"step {first}; max |Δ loss| stage 1 {max(d1):.4g} (last step "
+            f"{d1[-1]:.4g}), stage 2 {max(d2):.4g}; first stage-1 losses "
+            f"{runs[a]['losses1'][:3]}, {runs[b]['losses1'][:3]}; last "
+            f"{runs[a]['losses1'][-1]:.5g}, {runs[b]['losses1'][-1]:.5g}")
+
+
+def phase_forward_repeat(torch, G, params, st):
+    """Which of stage 1's inputs and forwards repeat their bits when run
+    twice: the target render, the w statistics of 5000 latents, and one
+    step's loss forward under cuDNN's default and deterministic
+    algorithms. Logs the largest differences."""
+    proj = st["proj"]
+    (img, t255), (img2, t2552) = (stage1_target(torch, G, params)
+                                  for _ in range(2))
+    stats = [proj.compute_w_stats(generator=torch.Generator(
+        device=DEVICE).manual_seed(11)) for _ in range(2)]
+    losses = {}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        try:
+            with torch.no_grad():
+                losses[det] = [proj._loss(st["state"], st["t255"], st["feats"],
+                                          st["w_noise"], draws=st["draws"],
+                                          target_warp=st["img"])[0].item()
+                               for _ in range(2)]
+        finally:
+            torch.backends.cudnn.deterministic = False
+    d_img = (img - img2).abs().max().item()
+    d_t255 = (t255 - t2552).abs().max().item()
+    d_avg = (stats[0][0] - stats[1][0]).abs().max().item()
+    d_std = (stats[0][1] - stats[1][1]).abs().item()
+    log(f"run twice, max |Δ|: target render {d_img:.3g}, its 256² shrink "
+        f"{d_t255:.3g}; w_avg {d_avg:.3g}, w_std {d_std:.3g}; one step's "
+        f"loss forward, default cuDNN {losses[False]}, deterministic cuDNN "
+        f"{losses[True]}")
 
 
 def phase_stage1_step_times(torch, gs, st, mode="pack", steps=6, warmup=2):
@@ -971,20 +1069,23 @@ def phase_sorted_times(torch, gs, seen, bw):
                                       g_lib, nchw, grid, 0, 0, False,
                                       [True, False])),
         }
-        # The sorted formulation's least traffic: g and coords read, the
-        # entries (int32) and offsets read, d_planes written once.
-        # Operations: per entry a corner weight (~20 flops) and a
-        # multiply-add per channel.
-        nbytes = 4 * (N * 3 * M * C + N * M * 3 + N * 3 * 4 * M
-                      + N * 3 * (H * W + 1) + N * 3 * H * W * C)
-        flops = N * 3 * 4 * M * (2 * C + 20)
+        # The function's bound, as the fused splat's: g and coords read,
+        # d_planes written once; per point and plane four weighted adds
+        # per channel and ~20 flops of projection and weights.
+        nbytes = 4 * (N * 3 * M * C + N * M * 3 + N * 3 * H * W * C)
+        flops = N * 3 * M * (8 * C + 20)
         t["bound_ms"] = max(nbytes / bw, flops / FP32_FLOPS) * 1e3
         t["bound_by"] = ("bytes" if nbytes / bw >= flops / FP32_FLOPS
                          else "operations")
+        # The sorted design's own least traffic on top: its int32 entry
+        # list and segment offsets, each read once.
+        design = nbytes + 4 * (N * 3 * 4 * M + N * 3 * (H * W + 1))
+        t["design_bound_ms"] = max(design / bw, flops / FP32_FLOPS) * 1e3
         log(f"times, sorted splat pass {i} (N={N}, M={M}, C={C}, {H}x{W}): "
             + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else
                         f"{k} {v}" for k, v in t.items())
-            + f" ({nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s)")
+            + f" (bound {nbytes / 1e6:.1f} MB, with the entries and "
+            f"offsets {design / 1e6:.1f} MB, at {bw / 1e12:.2f} TB/s)")
         rows.append(t)
     out = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]
            if k != "bound_by"}
@@ -1227,8 +1328,11 @@ def main():
         nets = stage1_nets(torch, stage1_target(torch, G, params)[1])
         st1 = stage1_setup(torch, G, params, nets)
         per_step, sorted_seen = phase_stage1_grads(torch, gs, st1)
-        runs = {mode: phase_stage1_stage2(torch, gs, G, params, nets, tmp,
-                                          mode) for mode in ("pack", "mxu")}
+        runs = {label: phase_stage1_stage2(torch, gs, G, params, nets, tmp,
+                                           label.split("_")[0], label)
+                for label in ("pack", "pack_again", "mxu", "mxu_again")}
+        phase_route_spread(runs)
+        phase_forward_repeat(torch, G, params, st1)
     gather_times = phase_times(torch, gs, G, params, bw)
     _, seen = phase_step_times(torch, gs, params, st)
     splat_times = phase_splat_times(torch, gs, seen, bw)
@@ -1272,6 +1376,7 @@ def main():
         "source": "tgi_torch/csrc/triplane_splat_sorted.cu",
         "replaces": "tgi/ops/pallas/splat_mxu.py:112",
         "launches": total(mxu, "triplane_splat_sorted"),
+        "cells_launches": total(mxu, "triplane_splat_cells"),
         "launches_by_path": {"run_pti_stage1": mxu["stage1"][
                                  "triplane_splat_sorted"],
                              "run_pti_stage2": mxu["stage2"][

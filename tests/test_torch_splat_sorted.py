@@ -165,10 +165,11 @@ def test_sorted_kernel_wrappers_raise_without_a_card(monkeypatch):
                                torch.from_numpy(g), 1.0, True,
                                want_dplanes=False)
     monkeypatch.setenv("TGI_SPLAT", "mxu")
-    before = (gs.LAUNCHES, gs.SPLAT_LAUNCHES, gs.SORTED_SPLAT_LAUNCHES)
+    before = (gs.LAUNCHES, gs.SPLAT_LAUNCHES, gs.SORTED_SPLAT_LAUNCHES,
+              gs.SPLAT_CELLS_LAUNCHES)
     port_splat_grads(planes, coords, g, 1.0)
-    assert (gs.LAUNCHES, gs.SPLAT_LAUNCHES,
-            gs.SORTED_SPLAT_LAUNCHES) == before
+    assert (gs.LAUNCHES, gs.SPLAT_LAUNCHES, gs.SORTED_SPLAT_LAUNCHES,
+            gs.SPLAT_CELLS_LAUNCHES) == before
 
 
 def test_sorted_splat_rejects_bad_shapes():

@@ -53,7 +53,8 @@ import torch
 # Launches of the CUDA kernels since the counts were last set to 0.
 LAUNCHES = 0                 # triplane_gather
 SPLAT_LAUNCHES = 0           # triplane_splat
-SORTED_SPLAT_LAUNCHES = 0    # triplane_splat_sorted (one per call)
+SORTED_SPLAT_LAUNCHES = 0    # triplane_splat_sorted's segment kernel
+SPLAT_CELLS_LAUNCHES = 0     # triplane_splat_sorted's cell kernel (prep)
 
 
 def _unnormalize(coord, size):
@@ -393,6 +394,7 @@ def splat_segments_cuda(coords, g, order, offsets, box_warp, H, W):
     """The sorted splat's segment kernel (``triplane_splat_sorted.cu``)
     on the prep's ``order`` and ``offsets``: ``d_planes
     [N, 3, H, W, C]``."""
+    global SORTED_SPLAT_LAUNCHES
     from tgi_torch.ops import _native
     N, C, M = _check_sorted_args(coords, g, H, W)
     d_planes = torch.empty((N, 3, H, W, C), dtype=torch.float32,
@@ -409,12 +411,14 @@ def splat_segments_cuda(coords, g, order, offsets, box_warp, H, W):
     if err != 0:
         raise RuntimeError(f"splat_segments launch failed: "
                            f"{_native.error_string(err)} ({err})")
+    SORTED_SPLAT_LAUNCHES += 1
     return d_planes
 
 
 def splat_prep_cuda(coords, box_warp, H, W):
     """The sorted splat's prep on the card: the cell kernel
     (``triplane_splat_sorted.cu``), then :func:`splat_sort`."""
+    global SPLAT_CELLS_LAUNCHES
     from tgi_torch.ops import _native
     N, M, _ = coords.shape
     cells = torch.empty((N * 3, 4 * M), dtype=torch.int32,
@@ -427,6 +431,7 @@ def splat_prep_cuda(coords, box_warp, H, W):
     if err != 0:
         raise RuntimeError(f"splat_cells launch failed: "
                            f"{_native.error_string(err)} ({err})")
+    SPLAT_CELLS_LAUNCHES += 1
     return splat_sort(cells, H, W)
 
 
@@ -435,7 +440,6 @@ def triplane_splat_sorted_cuda(coords, g, box_warp, H, W):
     atomics, so ``d_planes`` is the same bits from run to run.
 
     coords (contiguous) and g float32 on one CUDA device."""
-    global SORTED_SPLAT_LAUNCHES
     dev = g.device
     if dev.type != "cuda" or coords.device != dev:
         raise ValueError(f"coords on {coords.device}, g on {dev}: both must "
@@ -449,9 +453,7 @@ def triplane_splat_sorted_cuda(coords, g, box_warp, H, W):
         raise ValueError(f"shape out of the kernel's range: N={N}, M={M}, "
                          f"{H}x{W}")
     order, offsets = splat_prep_cuda(coords, box_warp, H, W)
-    d_planes = splat_segments_cuda(coords, g, order, offsets, box_warp, H, W)
-    SORTED_SPLAT_LAUNCHES += 1
-    return d_planes
+    return splat_segments_cuda(coords, g, order, offsets, box_warp, H, W)
 
 
 class TriplaneSample(torch.autograd.Function):
