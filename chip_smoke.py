@@ -48,7 +48,25 @@ Phases, each fatal on failure:
      and the card's bound; one full-width render; one tuning step split
      into forward, backward and Adam; one stage-1 step split into
      forward, backward and the three Adams; the sorted splat's prep and
-     segment kernel apart.
+     segment kernel apart;
+ 10. the kernels of tgi's two kernel benches (scripts/bench_gather_vmem.py
+     and scripts/bench_splat_sched.py), at their shapes (3 planes of
+     256², the points of a 64² or 128² ray frustum march, 48 samples):
+     a. the row fetch (gather_rows.cu, fp32 and bf16) bitwise equal to
+        its plain version at P = 786,432 and at a ragged P = 1037 with
+        rows of 128 and 64;
+     b. the tile walk (gather_tilewalk.cu, bf16 and fp32, block-local and
+        ray-major order) bitwise equal to its plain version, and its
+        passes per block equal to the plain count, at the same shapes;
+     c. the scheduled splat (splat_sched.cu): walk and nbhd against the
+        full index_add_ sum, static9 against its own masked sum, within
+        SPLAT_TOL, at P = 786,432 and at ragged 64² shapes;
+     e. the port's twins of the two benches through their ``main`` at
+        their default shapes, each with every count set to 0 before it
+        and read after (the slice's main path);
+     d. each of the three kernels timed at P = 786,432 and 196,608
+        beside its plain version, the library call (torch indexing;
+        index_add_) and the byte bound.
 
 Phase 3 also holds the sorted splat (``TGI_SPLAT=mxu``'s backward)
 against its plain version, checks that two runs give the same bits, and
@@ -125,19 +143,8 @@ def log(*args):
 
 def cuda_ms(torch, fn, iters=30, warmup=3):
     """Median milliseconds of ``fn`` on the card, CUDA events per call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    from tgi_torch.scripts import median_ms
+    return median_ms(fn, torch.device(DEVICE), iters, warmup)
 
 
 def border_coords(H, W):
@@ -306,7 +313,7 @@ def phase_generate(torch, gs, G, params, tmp):
     seeds = [0, 1]
     angles = ((0.35, 0.0), (0.0, 0.0), (-0.35, 0.0))
 
-    gs.LAUNCHES = gs.SPLAT_LAUNCHES = 0
+    zero_counts(gs)
     t0 = time.perf_counter()
     res = generate_samples(G, params, seeds, angles=angles, outdir=outdir,
                            device=DEVICE)
@@ -493,7 +500,7 @@ def phase_generator_grads(torch, gs, G, params):
     # differs between two runs is the order of the atomics alone.
     torch.backends.cudnn.deterministic = True
     try:
-        gs.LAUNCHES = gs.SPLAT_LAUNCHES = 0
+        zero_counts(gs)
         kernel = grads(gs.sample_triplanes)
         launches = (gs.LAUNCHES, gs.SPLAT_LAUNCHES)
         check(launches == (2, 2), f"(gather, splat) launches {launches} for "
@@ -582,7 +589,7 @@ def phase_stage2(torch, gs, G, params, tmp):
         png_renders = 0
 
     torch.cuda.synchronize()
-    gs.LAUNCHES = gs.SPLAT_LAUNCHES = 0
+    zero_counts(gs)
     t0 = time.perf_counter()
     entry, tuned, info = invert_one(
         "face", target, G=G, gen_params=params, coach=coach, out_dir=tmp,
@@ -631,8 +638,24 @@ def counts(gs):
 
 
 def zero_counts(gs):
+    """Every kernel's count to 0: the tri-plane kernels' and the bench
+    kernels'."""
+    from tgi_torch.ops import gather_rows as gr
+    from tgi_torch.ops import splat_sched as ss
     gs.LAUNCHES = gs.SPLAT_LAUNCHES = gs.SORTED_SPLAT_LAUNCHES = 0
     gs.SPLAT_CELLS_LAUNCHES = 0
+    gr.GATHER_ROWS_LAUNCHES = gr.TILEWALK_LAUNCHES = 0
+    ss.SPLAT_SCHED_LAUNCHES = 0
+
+
+def bench_counts():
+    """Launches of the bench kernels (gather_rows.cu, gather_tilewalk.cu,
+    splat_sched.cu)."""
+    from tgi_torch.ops import gather_rows as gr
+    from tgi_torch.ops import splat_sched as ss
+    return {"gather_rows": gr.GATHER_ROWS_LAUNCHES,
+            "gather_tilewalk": gr.TILEWALK_LAUNCHES,
+            "splat_sched": ss.SPLAT_SCHED_LAUNCHES}
 
 
 class splat_route:
@@ -903,6 +926,7 @@ def phase_stage1_stage2(torch, gs, G, params, nets, tmp, mode, label):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         total = counts(gs)
+        bench_kernels = bench_counts()
     stage1 = at_stage2["launches"]
     stage2 = {k: total[k] - stage1[k] for k in total}
     proj_losses = info["projection"]["loss"]
@@ -937,7 +961,10 @@ def phase_stage1_stage2(torch, gs, G, params, nets, tmp, mode, label):
     check(stage1 == want1 and stage2 == want2,
           f"launches stage 1 {stage1}, stage 2 {stage2}; expected {want1}, "
           f"{want2}")
+    check(not any(bench_kernels.values()),
+          f"run_pti launched a bench kernel: {bench_kernels}")
     return {"stage1": stage1, "stage2": stage2, "wall": wall,
+            "bench_kernels": bench_kernels,
             "losses1": proj_losses, "losses2": info["losses"]}
 
 
@@ -1302,6 +1329,286 @@ def phase_splat_times(torch, gs, seen, bw):
             "bound_ms": mean[3], "bound_by": rows[0][4]}
 
 
+# The kernels of tgi's two kernel benches, at the benches' shapes: 3
+# planes of 256², the points of a frustum march of Ry x Rx rays and S
+# samples. The render pass's point count first, then the scripts'.
+BENCH_LAYOUTS = ((128, 128, 48), (64, 64, 48))
+BENCH_RES = 256
+
+
+def main_points():
+    """P of the render pass, the first layout."""
+    return math.prod(BENCH_LAYOUTS[0])
+
+
+def bench_inputs(torch):
+    """The benches' tensors on the card at both point counts:
+    {("gather" | "splat", P): tensors}."""
+    from tgi_torch.scripts import bench_gather_vmem as bgv
+    from tgi_torch.scripts import bench_splat_sched as bss
+    out = {}
+    for Ry, Rx, S in BENCH_LAYOUTS:
+        P = Ry * Rx * S
+        out["gather", P] = bgv.make_inputs(DEVICE, Ry, Rx, S, BENCH_RES)
+        out["splat", P] = bss.make_inputs(DEVICE, Ry, Rx, S, BENCH_RES)
+        out["gather", P]["cells_tiled_long"] = {
+            k: out["gather", P][k].long()
+            for k in ("cells_tiled", "cells_tiled_blocked")}
+    return out
+
+
+def _local_cells(torch, gen, H, W, P):
+    """Tile-numbered cells of random walks (spatially local), with an
+    out-of-range cell at each end."""
+    from tgi_torch.ops.pack import tiled_cell
+    y = (torch.randint(-1, 2, (3, P), generator=gen).cumsum(1)
+         + H // 2).clamp(0, H - 1)
+    x = (torch.randint(-1, 2, (3, P), generator=gen).cumsum(1)
+         + W // 2).clamp(0, W - 1)
+    cells = tiled_cell(y, x, W).int()
+    cells[:, 3] = -1
+    cells[:, -2] = H * W
+    return cells
+
+
+def phase_row_fetch_vs_plain(torch, inputs):
+    """a. gather_rows.cu bitwise against its plain version: fp32 and bf16
+    at P = 786,432, and at a ragged P = 1037 with rows of 128 and 64 and
+    cells out of range."""
+    from tgi_torch.ops import gather_rows as gr
+    P = main_points()
+    t = inputs["gather", P]
+    cases = [(f"fp32 P={P}", t["exp32"], t["cells"]),
+             (f"bf16 P={P}", t["exp16"], t["cells"])]
+    gen = torch.Generator().manual_seed(21)
+    for L in (128, 64):
+        exp = torch.randn(3, 1024, L, generator=gen)
+        cells = torch.randint(-2, 1026, (3, 1037), generator=gen).int()
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append((f"{str(dt)[6:]} P=1037 L={L}",
+                          exp.to(DEVICE, dt), cells.to(DEVICE)))
+    worst = 0.0
+    for name, exp, cells in cases:
+        got = gr.gather_rows_cuda(exp, cells)
+        want = gr.gather_rows_plain(exp, cells)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        same = torch.equal(got, want)
+        log(f"gather_rows vs plain, {name}: bitwise equal {same}, max abs "
+            f"err {err}")
+        check(same, f"gather_rows differs from its plain version ({name})")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_tilewalk_vs_plain(torch, inputs):
+    """b. gather_tilewalk.cu bitwise against its plain version, bf16 and
+    fp32, block-local and ray-major order, at P = 786,432 and at a ragged
+    P = 1037 on a 32² plane with rows of 128 and 64; its passes per block
+    equal to the plain count. Returns (max abs err, mean passes per
+    block by order at P = 786,432)."""
+    from tgi_torch.ops import gather_rows as gr
+    P = main_points()
+    t = inputs["gather", P]
+    cases = []
+    for dt, exp in (("bf16", t["exp16_t"]), ("fp32", t["exp32_t"])):
+        for order, key in (("block-local", "cells_tiled_blocked"),
+                           ("ray-major", "cells_tiled")):
+            cases.append((f"{dt} {order} P={P}", order, exp, t[key]))
+    gen = torch.Generator().manual_seed(22)
+    cells = _local_cells(torch, gen, 32, 32, 1037).to(DEVICE)
+    for L in (128, 64):
+        exp = torch.randn(3, 1024, L, generator=gen)
+        for dt in (torch.bfloat16, torch.float32):
+            cases.append((f"{str(dt)[6:]} P=1037 L={L}", None,
+                          exp.to(DEVICE, dt), cells))
+    worst, passes = 0.0, {}
+    for name, order, exp, cells in cases:
+        got, n = gr.gather_rows_tilewalk_cuda(exp, cells, return_passes=True)
+        want = gr.gather_rows_plain(exp, cells)
+        n_want = gr.tilewalk_passes_plain(cells, exp.shape[1])
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        same = torch.equal(got, want)
+        mean = n.float().mean().item()
+        log(f"gather_tilewalk vs plain, {name}: bitwise equal {same}, max "
+            f"abs err {err}; passes per block {mean:.3f} (plain count "
+            f"equal {torch.equal(n, n_want)})")
+        check(same, f"gather_tilewalk differs from its plain version "
+              f"({name})")
+        check(torch.equal(n, n_want), f"gather_tilewalk's passes differ "
+              f"from the plain count ({name})")
+        if order is not None:
+            passes.setdefault(order, mean)
+        worst = max(worst, err)
+    return worst, passes
+
+
+def phase_splat_sched_vs_plain(torch, inputs):
+    """c. splat_sched.cu against plain: walk and nbhd against the full
+    ``index_add_`` sum, static9 against its own masked sum, max|d| <=
+    SPLAT_TOL * max(1, max|plain|), at P = 786,432 (block-local order)
+    and at ragged 64x64 and 64x128 shapes (the latter leaves nbhd a
+    residual walk). Returns (max abs, max relative) error."""
+    from tgi_torch.ops import splat_sched as ss
+    t = inputs["splat", main_points()]
+    cases = [(f"P={main_points()} {BENCH_RES}x{BENCH_RES}", t["rows"],
+              t["wg"], BENCH_RES, BENCH_RES)]
+    gen = torch.Generator().manual_seed(23)
+    for H, W in ((64, 64), (64, 128)):
+        rows = torch.randint(-1, H * W + 1, (3, 1037), generator=gen).int()
+        wg = torch.randn(3, 1037, 128, generator=gen).bfloat16()
+        cases.append((f"E=1037 {H}x{W}", rows.to(DEVICE), wg.to(DEVICE),
+                      H, W))
+    worst_abs = worst_rel = 0.0
+    for name, rows, wg, H, W in cases:
+        full = ss.splat_sched_plain(rows, wg, H, W, "walk")
+        for schedule in ss.SCHEDULES:
+            got = ss.splat_sched_cuda(rows, wg, H, W, schedule)
+            want = (ss.splat_sched_plain(rows, wg, H, W, schedule)
+                    if schedule == "static9" else full)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            log(f"splat_sched {schedule} vs plain, {name}: max abs err "
+                f"{err:.3g} (max |plain| {scale:.4g}, relative "
+                f"{err / scale:.3g})")
+            check(err <= SPLAT_TOL * scale, f"splat_sched {schedule} "
+                  f"disagrees with its plain version ({name}): {err} > "
+                  f"{SPLAT_TOL} * {scale}")
+            worst_abs = max(worst_abs, err)
+            worst_rel = max(worst_rel, err / scale)
+    return worst_abs, worst_rel
+
+
+def phase_benches(torch, gs):
+    """e. The port's twins of tgi's two kernel benches through their
+    ``main`` at their default shapes, on the card: the slice's main path.
+    Every count is 0 before each and read after. Returns {bench:
+    launches}."""
+    from tgi_torch.scripts import bench_gather_vmem as bgv
+    from tgi_torch.scripts import bench_splat_sched as bss
+    launches = {}
+    for name, mod in (("bench_gather_vmem", bgv),
+                      ("bench_splat_sched", bss)):
+        torch.cuda.synchronize()
+        zero_counts(gs)
+        t0 = time.perf_counter()
+        res = mod.main(["--device", DEVICE])
+        torch.cuda.synchronize()
+        launches[name] = {**counts(gs), **bench_counts()}
+        log(f"{name}.main: {time.perf_counter() - t0:.1f} s, launches "
+            f"{launches[name]}")
+        check(all(math.isfinite(v) and v > 0 for v in res["ms"].values()),
+              f"{name}: a time is not a positive number: {res['ms']}")
+        if mod is bgv:
+            check(len(res["ms"]) == 8 and set(res["max_abs"].values())
+                  == {0.0}, f"{name}: {res}")
+            kernels = ("gather_rows", "gather_tilewalk", "triplane_gather")
+        else:
+            err = max(res["max_abs"].values())
+            check(len(res["ms"]) == 5 and err <= SPLAT_TOL * res["scale"],
+                  f"{name}: {res}")
+            kernels = ("splat_sched", "triplane_splat")
+        for k in kernels:
+            check(launches[name][k] > 0, f"{name} launched no {k}")
+    return launches
+
+
+def _time_row(torch, fn, plain, library, nbytes, flops, bw, **extra):
+    """One kernel's times on one input beside its bound."""
+    row = {"ms": cuda_ms(torch, fn), "plain_ms": cuda_ms(torch, plain,
+                                                         iters=10),
+           "library_ms": cuda_ms(torch, library),
+           "bound_ms": max(nbytes / bw, flops / FP32_FLOPS) * 1e3,
+           "bound_by": ("bytes" if nbytes / bw >= flops / FP32_FLOPS
+                        else "operations"),
+           "bound_bytes": nbytes, **extra}
+    return row
+
+
+def phase_bench_kernel_times(torch, inputs, bw):
+    """d. Each bench kernel at P = 786,432 and 196,608 beside its plain
+    version, the library call (torch indexing; ``index_add_`` of the
+    upcast payload) and the bound: each input read once, each output
+    written once. Returns {kernel: {case: row}}."""
+    from tgi_torch.ops import gather_rows as gr
+    from tgi_torch.ops import splat_sched as ss
+    from tgi_torch.scripts import bench_gather_vmem as bgv
+    from tgi_torch.scripts import bench_splat_sched as bss
+    out = {"gather_rows": {}, "gather_tilewalk": {}, "splat_sched": {}}
+    for Ry, Rx, S in BENCH_LAYOUTS:
+        P = Ry * Rx * S
+        t = inputs["gather", P]
+        G, HW, L = t["exp32"].shape
+        for dt, exp, exp_t in (("bf16", t["exp16"], t["exp16_t"]),
+                               ("fp32", t["exp32"], t["exp32_t"])):
+            # out + plane + int32 cells; no arithmetic
+            nbytes = exp.element_size() * L * (G * P + G * HW) + 4 * G * P
+            out["gather_rows"][f"{dt} P={P}"] = _time_row(
+                torch, lambda: gr.gather_rows_cuda(exp, t["cells"]),
+                lambda: gr.gather_rows_plain(exp, t["cells"]),
+                lambda: bgv.index_rows(t, exp), nbytes, 0, bw)
+            for order, key in (("block-local", "cells_tiled_blocked"),
+                               ("ray-major", "cells_tiled")):
+                cells, idx = t[key], t["cells_tiled_long"][key]
+                _, n = gr.gather_rows_tilewalk_cuda(exp_t, cells, True)
+                out["gather_tilewalk"][f"{dt} {order} P={P}"] = _time_row(
+                    torch, lambda: gr.gather_rows_tilewalk_cuda(exp_t, cells),
+                    lambda: gr.gather_rows_plain(exp_t, cells),
+                    lambda: exp_t[t["plane_idx"], idx], nbytes, 0, bw,
+                    passes_per_block=n.float().mean().item())
+        s = inputs["splat", P]
+        rows, wg = s["rows"], s["wg"]
+        for schedule in ss.SCHEDULES:
+            # The payloads the schedule adds (static9 drops some), all
+            # rows, the accumulator written once; one add per element.
+            R = BENCH_RES
+            kept = ss.schedule_mask(rows, R, R, schedule).sum().item()
+            nbytes = 2 * 128 * kept + 4 * G * P + 4 * 128 * G * HW
+            out["splat_sched"][f"{schedule} P={P}"] = _time_row(
+                torch, lambda: ss.splat_sched_cuda(rows, wg, R, R, schedule),
+                lambda: ss.splat_sched_plain(rows, wg, R, R, schedule),
+                lambda: bss.index_add(s), nbytes, 128 * kept, bw)
+    for kernel, rows in out.items():
+        for case, r in rows.items():
+            log(f"times, {kernel} {case}: " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in r.items())
+                + f" (bound: {r['bound_bytes'] / 1e6:.1f} MB at "
+                f"{bw / 1e12:.2f} TB/s)")
+    return out
+
+
+def bench_kernel_entries(times, errs, launches, check_launches, runs):
+    """The three bench kernels' entries of the ``kernels`` line: the
+    numbers at the render pass's P = 786,432 (bf16, block-local order,
+    the walk), every measured case under ``cases``."""
+    P = main_points()
+    spec = (("gather_rows", "gather_rows.cu",
+             "tgi/ops/pallas/gather_vmem.py:98", f"bf16 P={P}"),
+            ("gather_tilewalk", "gather_tilewalk.cu",
+             "tgi/ops/pallas/gather_vmem.py:160", f"bf16 block-local P={P}"),
+            ("splat_sched", "splat_sched.cu", "scripts/bench_splat_sched.py"
+             ":118", f"walk P={P}"))
+    entries = []
+    for name, src, replaces, main_case in spec:
+        by_path = {path: n[name] for path, n in launches.items()}
+        entry = {"name": name, "route": "cuda",
+                 "source": f"tgi_torch/csrc/{src}", "replaces": replaces,
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": {**by_path, "run_pti": sum(
+                     r["bench_kernels"][name] for r in runs.values()),
+                                      "chip_smoke_check":
+                                          check_launches[name]},
+                 **errs[name], **times[name][main_case],
+                 "case": main_case, "cases": times[name]}
+        if name == "gather_rows":
+            entry["also_replaces"] = "tgi/ops/pallas/gather_vmem.py:62"
+        entries.append(entry)
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1340,6 +1647,21 @@ def main():
     step1 = {mode: phase_stage1_step_times(torch, gs, st1, mode)
              for mode in ("pack", "mxu")}
     sorted_times = phase_sorted_times(torch, gs, sorted_seen, bw)
+    inputs = bench_inputs(torch)
+    zero_counts(gs)
+    fetch_err = phase_row_fetch_vs_plain(torch, inputs)
+    walk_err, walk_passes = phase_tilewalk_vs_plain(torch, inputs)
+    sched_err, sched_rel = phase_splat_sched_vs_plain(torch, inputs)
+    check_launches = bench_counts()
+    bench_launches = phase_benches(torch, gs)
+    bench_times = phase_bench_kernel_times(torch, inputs, bw)
+    bench_entries = bench_kernel_entries(bench_times, {
+        "gather_rows": {"max_abs_err": fetch_err},
+        "gather_tilewalk": {"max_abs_err": walk_err,
+                            "passes_per_block_check": walk_passes},
+        "splat_sched": {"max_abs_err": sched_err,
+                        "max_rel_err": sched_rel}},
+        bench_launches, check_launches, runs)
 
     def total(run, kernel):
         return run["stage1"][kernel] + run["stage2"][kernel]
@@ -1357,7 +1679,9 @@ def main():
                              "run_pti_stage1": pack["stage1"][
                                  "triplane_gather"],
                              "run_pti_stage1_mxu": mxu["stage1"][
-                                 "triplane_gather"]},
+                                 "triplane_gather"],
+                             "bench_gather_vmem": bench_launches[
+                                 "bench_gather_vmem"]["triplane_gather"]},
         "max_abs_err": gather_err, **gather_times}, {
         "name": "triplane_splat", "route": "cuda",
         "source": "tgi_torch/csrc/triplane_splat.cu",
@@ -1369,7 +1693,9 @@ def main():
                              "run_pti_stage1": pack["stage1"][
                                  "triplane_splat"],
                              "run_pti_stage1_mxu": mxu["stage1"][
-                                 "triplane_splat"]},
+                                 "triplane_splat"],
+                             "bench_splat_sched": bench_launches[
+                                 "bench_splat_sched"]["triplane_splat"]},
         "max_abs_err": splat_err, "max_rel_err": splat_rel,
         **splat_times, "check_shape_c16": small_splat}, {
         "name": "triplane_splat_sorted", "route": "cuda",
@@ -1382,7 +1708,7 @@ def main():
                              "run_pti_stage2": mxu["stage2"][
                                  "triplane_splat_sorted"]},
         "max_abs_err": sorted_err, "max_rel_err": sorted_rel,
-        **sorted_times}],
+        **sorted_times}, *bench_entries],
         "stage1_step_ms": {m: v["step"] for m, v in step1.items()},
         "stage1_launches_per_step": per_step,
         "stage1_stage2_wall_s": {m: r["wall"] for m, r in runs.items()}}),

@@ -135,7 +135,9 @@ def test_splat_rejects_bad_shapes():
 
 
 def test_both_kernel_sources_are_built():
-    """Every kernel source is built and bound, the sorted splat's too."""
+    """Every kernel source is built and bound, the sorted splat's and the
+    bench kernels' too."""
     from tgi_torch.ops import _native
     assert set(_native.SOURCES) == set(_native.ENTRY_POINTS) == {
-        "triplane_gather.cu", "triplane_splat.cu", "triplane_splat_sorted.cu"}
+        "triplane_gather.cu", "triplane_splat.cu", "triplane_splat_sorted.cu",
+        "gather_rows.cu", "gather_tilewalk.cu", "splat_sched.cu"}

@@ -191,3 +191,31 @@ def tiny_aux_nets(seed=0, camera_dims=4):
                                       width_mult=0.125, blocks=(1, 1, 1, 1)),
             vgg.vgg16_init(gen, "cpu", width_mult=0.125),
             vgg.lpips_head_init(gen, "cpu", width_mult=0.125))
+
+
+def script_defs(path, **overrides):
+    """The imports, functions and constant assignments of a script that
+    runs its work at import (``scripts/bench_*.py``), executed in a
+    fresh namespace, then ``overrides`` set there (e.g. smaller shapes
+    for the functions that read module globals). An assignment is kept
+    when it calls nothing and reads only names bound by assignments kept
+    before it. The file is only read."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    keep, bound = [], set()
+    for n in tree.body:
+        if isinstance(n, (ast.Import, ast.ImportFrom, ast.FunctionDef)):
+            keep.append(n)
+        elif isinstance(n, ast.Assign):
+            nodes = list(ast.walk(n.value))
+            reads = {m.id for m in nodes if isinstance(m, ast.Name)}
+            if (not any(isinstance(m, ast.Call) for m in nodes)
+                    and reads <= bound):
+                keep.append(n)
+                bound |= {m.id for t in n.targets for m in ast.walk(t)
+                          if isinstance(m, ast.Name)}
+    ns = {"__name__": "script_defs", "__file__": path}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), ns)
+    ns.update(overrides)
+    return ns

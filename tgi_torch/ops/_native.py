@@ -25,7 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("triplane_gather.cu", "triplane_splat.cu",
-           "triplane_splat_sorted.cu")
+           "triplane_splat_sorted.cu", "gather_rows.cu",
+           "gather_tilewalk.cu", "splat_sched.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -102,6 +103,18 @@ ENTRY_POINTS = {
         # g, coords, order, offsets, d_planes, N, H, W, C, M, scale, stream
         "tgi_splat_segments_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
                                    _F, _P],
+    },
+    "gather_rows.cu": {
+        # exp, cells, out, G, HW, P, row_bytes, stream
+        "tgi_gather_rows": [_P, _P, _P, _I, _L, _L, _I, _P],
+    },
+    "gather_tilewalk.cu": {
+        # exp, cells, out, passes, G, nrows, P, row_bytes, stream
+        "tgi_gather_tilewalk": [_P, _P, _P, _P, _I, _I, _L, _I, _P],
+    },
+    "splat_sched.cu": {
+        # wg, rows, acc, G, E, H, W, schedule, stream
+        "tgi_splat_sched": [_P, _P, _P, _I, _L, _I, _I, _I, _P],
     },
 }
 
