@@ -142,9 +142,21 @@ def log(*args):
 
 
 def cuda_ms(torch, fn, iters=30, warmup=3):
-    """Median milliseconds of ``fn`` on the card, CUDA events per call."""
-    from tgi_torch.scripts import median_ms
-    return median_ms(fn, torch.device(DEVICE), iters, warmup)
+    """Median milliseconds of ``fn`` on the card, CUDA events per call.
+    The yardstick stays here, outside the package it measures."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 def border_coords(H, W):
@@ -1341,6 +1353,11 @@ def main_points():
     return math.prod(BENCH_LAYOUTS[0])
 
 
+def bench_point_counts():
+    """P of every layout: the render pass's, then the scripts'."""
+    return [math.prod(layout) for layout in BENCH_LAYOUTS]
+
+
 def bench_inputs(torch):
     """The benches' tensors on the card at both point counts:
     {("gather" | "splat", P): tensors}."""
@@ -1373,13 +1390,14 @@ def _local_cells(torch, gen, H, W, P):
 
 def phase_row_fetch_vs_plain(torch, inputs):
     """a. gather_rows.cu bitwise against its plain version: fp32 and bf16
-    at P = 786,432, and at a ragged P = 1037 with rows of 128 and 64 and
-    cells out of range."""
+    at both bench point counts (786,432 and 196,608), and at a ragged
+    P = 1037 with rows of 128 and 64 and cells out of range."""
     from tgi_torch.ops import gather_rows as gr
-    P = main_points()
-    t = inputs["gather", P]
-    cases = [(f"fp32 P={P}", t["exp32"], t["cells"]),
-             (f"bf16 P={P}", t["exp16"], t["cells"])]
+    cases = []
+    for P in bench_point_counts():
+        t = inputs["gather", P]
+        cases += [(f"fp32 P={P}", t["exp32"], t["cells"]),
+                  (f"bf16 P={P}", t["exp16"], t["cells"])]
     gen = torch.Generator().manual_seed(21)
     for L in (128, 64):
         exp = torch.randn(3, 1024, L, generator=gen)
@@ -1403,18 +1421,19 @@ def phase_row_fetch_vs_plain(torch, inputs):
 
 def phase_tilewalk_vs_plain(torch, inputs):
     """b. gather_tilewalk.cu bitwise against its plain version, bf16 and
-    fp32, block-local and ray-major order, at P = 786,432 and at a ragged
-    P = 1037 on a 32² plane with rows of 128 and 64; its passes per block
-    equal to the plain count. Returns (max abs err, mean passes per
-    block by order at P = 786,432)."""
+    fp32, block-local and ray-major order, at both bench point counts
+    (786,432 and 196,608) and at a ragged P = 1037 on a 32² plane with
+    rows of 128 and 64; its passes per block equal to the plain count.
+    Returns (max abs err, mean passes per block by order and P)."""
     from tgi_torch.ops import gather_rows as gr
-    P = main_points()
-    t = inputs["gather", P]
     cases = []
-    for dt, exp in (("bf16", t["exp16_t"]), ("fp32", t["exp32_t"])):
-        for order, key in (("block-local", "cells_tiled_blocked"),
-                           ("ray-major", "cells_tiled")):
-            cases.append((f"{dt} {order} P={P}", order, exp, t[key]))
+    for P in bench_point_counts():
+        t = inputs["gather", P]
+        for dt, exp in (("bf16", t["exp16_t"]), ("fp32", t["exp32_t"])):
+            for order, key in (("block-local", "cells_tiled_blocked"),
+                               ("ray-major", "cells_tiled")):
+                cases.append((f"{dt} {order} P={P}", f"{order} P={P}",
+                              exp, t[key]))
     gen = torch.Generator().manual_seed(22)
     cells = _local_cells(torch, gen, 32, 32, 1037).to(DEVICE)
     for L in (128, 64):
@@ -1447,13 +1466,14 @@ def phase_tilewalk_vs_plain(torch, inputs):
 def phase_splat_sched_vs_plain(torch, inputs):
     """c. splat_sched.cu against plain: walk and nbhd against the full
     ``index_add_`` sum, static9 against its own masked sum, max|d| <=
-    SPLAT_TOL * max(1, max|plain|), at P = 786,432 (block-local order)
-    and at ragged 64x64 and 64x128 shapes (the latter leaves nbhd a
-    residual walk). Returns (max abs, max relative) error."""
+    SPLAT_TOL * max(1, max|plain|), at both bench point counts (786,432
+    and 196,608, block-local order) and at ragged 64x64 and 64x128 shapes
+    (the latter leaves nbhd a residual walk). Returns (max abs, max
+    relative) error."""
     from tgi_torch.ops import splat_sched as ss
-    t = inputs["splat", main_points()]
-    cases = [(f"P={main_points()} {BENCH_RES}x{BENCH_RES}", t["rows"],
-              t["wg"], BENCH_RES, BENCH_RES)]
+    cases = [(f"P={P} {BENCH_RES}x{BENCH_RES}", inputs["splat", P]["rows"],
+              inputs["splat", P]["wg"], BENCH_RES, BENCH_RES)
+             for P in bench_point_counts()]
     gen = torch.Generator().manual_seed(23)
     for H, W in ((64, 64), (64, 128)):
         rows = torch.randint(-1, H * W + 1, (3, 1037), generator=gen).int()

@@ -28,8 +28,7 @@ from torch_helpers import script_defs
 
 SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts")
-TINY = ["--device", "cpu", "--rays", "8", "16", "--samples", "4",
-        "--iters", "1", "--warmup", "0"]
+TINY = ["--device", "cpu", "--rays", "8", "16", "--samples", "4"]
 
 
 def test_gather_bench_main_on_the_cpu(capsys):

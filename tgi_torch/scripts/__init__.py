@@ -28,17 +28,21 @@ def frustum_points(Ry: int = 64, Rx: int = 64, S: int = 48) -> np.ndarray:
     return pts.reshape(Ry * Rx * S, 3) * 2.0
 
 
-def median_ms(fn, device: torch.device, iters: int = 20,
-              warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``iters`` calls after
-    ``warmup`` calls: CUDA events around each call on a CUDA device, the
+# Every bench time is the median of ITERS calls after WARMUP calls, and
+# every draw comes from SEED, as tgi's scripts fix PRNGKey(0).
+ITERS, WARMUP, SEED = 20, 3, 0
+
+
+def median_ms(fn, device: torch.device) -> float:
+    """Median milliseconds of ``fn()`` over ``ITERS`` calls after
+    ``WARMUP`` calls: CUDA events around each call on a CUDA device, the
     host clock on the CPU."""
-    for _ in range(warmup):
+    for _ in range(WARMUP):
         fn()
     times = []
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-        for _ in range(iters):
+        for _ in range(ITERS):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -47,7 +51,7 @@ def median_ms(fn, device: torch.device, iters: int = 20,
             b.synchronize()
             times.append(a.elapsed_time(b))
     else:
-        for _ in range(iters):
+        for _ in range(ITERS):
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3)

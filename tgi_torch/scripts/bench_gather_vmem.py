@@ -2,7 +2,7 @@
 side (twin of ``scripts/bench_gather_vmem.py``).
 
     python -m tgi_torch.scripts.bench_gather_vmem [--device cuda]
-        [--rays 64 64] [--samples 48] [--res 256] [--iters 20]
+        [--rays 64 64] [--samples 48] [--res 256]
 
 G = 3 planes of C = 32 channels at ``--res``² cells, footprint-expanded
 to ``[G, res², 128]`` (``pack.expand_footprint``), fetched at the cells
@@ -21,9 +21,9 @@ spatial locality sets the tile walk's pass count):
 beside the fused gather + lerp (``csrc/triplane_gather.cu``) on the same
 points, and the tile walk's mean passes per 512-point block in both
 orders. Correctness comes first: C, D, E and G against A's indexing
-(each must print 0). Times are medians of ``--iters`` calls after
-``--warmup``, on CUDA events; on the CPU every wrapper takes its plain
-version and times are the host's.
+(each must print 0). Times are medians of ``scripts.ITERS`` calls after
+``scripts.WARMUP``, on CUDA events; on the CPU every wrapper takes its
+plain version and times are the host's.
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ from tgi_torch.ops import grid_sample as gs
 from tgi_torch.ops.gather_rows import gather_rows, gather_rows_tilewalk
 from tgi_torch.ops.pack import (TILE, block_local_perm, expand_footprint,
                                 reorder_perm_shape, tiled_cell)
-from tgi_torch.scripts import device_label, frustum_points, median_ms
+from tgi_torch.scripts import (SEED, device_label, frustum_points,
+                               median_ms)
 
 G, C = 3, 32
 BOX_WARP = 2.0   # world points are scaled by 2 / BOX_WARP = 1 onto the planes
@@ -74,14 +75,14 @@ def unperm(out: torch.Tensor, layout) -> torch.Tensor:
     return r.permute((0,) + tuple(a + 1 for a in inv) + (6,)).reshape(n, P, L)
 
 
-def make_inputs(device, Ry=64, Rx=64, S=48, res=256, seed=0) -> dict:
+def make_inputs(device, Ry=64, Rx=64, S=48, res=256) -> dict:
     """The bench's tensors on ``device``: planes, their expanded and
     tile-numbered copies in fp32 and bf16, and the points' cells
     row-major, tile-numbered, and tile-numbered in block-local order."""
     device = torch.device(device)
     H = W = res
     layout = (Ry, Rx, S)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator().manual_seed(SEED)
     planes = torch.randn(G, C, H, W, generator=gen)
     exp32 = expand_footprint(planes)
     x0, y0, _, _ = gs._point_indices(ray_coords(Ry, Rx, S), H, W)
@@ -130,13 +131,10 @@ def main(argv=None) -> dict:
                     metavar=("RY", "RX"))
     ap.add_argument("--samples", type=int, default=48)
     ap.add_argument("--res", type=int, default=256)
-    ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--warmup", type=int, default=3)
-    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     Ry, Rx = args.rays
-    t = make_inputs(device, Ry, Rx, args.samples, args.res, args.seed)
+    t = make_inputs(device, Ry, Rx, args.samples, args.res)
     layout = t["layout"]
     P = Ry * Rx * args.samples
     print(f"device: {device_label(device)}; G={G} C={C} {args.res}² planes, "
@@ -177,7 +175,7 @@ def main(argv=None) -> dict:
     }
     ms = {}
     for name, fn in variants.items():
-        ms[name] = median_ms(fn, device, args.iters, args.warmup)
+        ms[name] = median_ms(fn, device)
         print(f"{name:56s} {ms[name]:9.4f} ms", flush=True)
 
     passes = {}

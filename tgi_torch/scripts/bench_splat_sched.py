@@ -2,7 +2,7 @@
 (twin of ``scripts/bench_splat_sched.py``).
 
     python -m tgi_torch.scripts.bench_splat_sched [--device cuda]
-        [--rays 64 64] [--samples 48] [--res 256] [--iters 20]
+        [--rays 64 64] [--samples 48] [--res 256]
 
 G = 3 planes at ``--res``² cells, P = Ry·Rx·S frustum-march points per
 plane, each packed into one entry (``pack.pack_footprint``): a bf16
@@ -19,8 +19,9 @@ under three schedules:
 beside the library call (``index_add_`` of the upcast payload) and the
 fused splat ``csrc/triplane_splat.cu`` on the same points, and C's and
 A's distance from the ``index_add_`` sum (``C max|d| vs A``). Times are
-medians of ``--iters`` calls after ``--warmup``, on CUDA events; on the
-CPU every wrapper takes its plain version and times are the host's.
+medians of ``scripts.ITERS`` calls after ``scripts.WARMUP``, on CUDA
+events; on the CPU every wrapper takes its plain version and times are
+the host's.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ import torch
 from tgi_torch.ops import grid_sample as gs
 from tgi_torch.ops.pack import block_local_perm, pack_footprint
 from tgi_torch.ops.splat_sched import splat_sched
-from tgi_torch.scripts import device_label, frustum_points, median_ms
+from tgi_torch.scripts import (SEED, device_label, frustum_points,
+                               median_ms)
 
 G, C = 3, 32
 BOX_WARP = 2.0   # world points are scaled by 2 / BOX_WARP = 1 onto the planes
@@ -53,7 +55,7 @@ def ray_cells(Ry=64, Rx=64, S=48, H=256, W=256):
             torch.from_numpy(np.floor(ix)).long())
 
 
-def make_inputs(device, Ry=64, Rx=64, S=48, res=256, seed=0) -> dict:
+def make_inputs(device, Ry=64, Rx=64, S=48, res=256) -> dict:
     """The bench's tensors on ``device``: the packed entries in
     block-local order (``rows`` int32 ``[G, P]``, ``wg`` bf16
     ``[G, P, 128]``), the flat int64 rows of the ``index_add_`` call, and
@@ -62,7 +64,7 @@ def make_inputs(device, Ry=64, Rx=64, S=48, res=256, seed=0) -> dict:
     H = W = res
     P = Ry * Rx * S
     y0, x0 = ray_cells(Ry, Rx, S, H, W)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator().manual_seed(SEED)
     w4 = torch.rand(G, P, 4, generator=gen)
     grads = torch.randn(G, P, C, generator=gen)
     cell, w4s = pack_footprint(y0, x0, w4, H, W)
@@ -113,13 +115,10 @@ def main(argv=None) -> dict:
                     metavar=("RY", "RX"))
     ap.add_argument("--samples", type=int, default=48)
     ap.add_argument("--res", type=int, default=256)
-    ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--warmup", type=int, default=3)
-    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     Ry, Rx = args.rays
-    t = make_inputs(device, Ry, Rx, args.samples, args.res, args.seed)
+    t = make_inputs(device, Ry, Rx, args.samples, args.res)
     H = W = args.res
     P = Ry * Rx * args.samples
     print(f"device: {device_label(device)}; G={G} {args.res}² planes, "
@@ -136,7 +135,7 @@ def main(argv=None) -> dict:
                 "fused splat fp32 (triplane_splat)": lambda: fused_splat(t)}
     ms = {}
     for name, fn in variants.items():
-        ms[name] = median_ms(fn, device, args.iters, args.warmup)
+        ms[name] = median_ms(fn, device)
         print(f"{name:56s} {ms[name]:9.4f} ms", flush=True)
 
     want = index_add(t)
