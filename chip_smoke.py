@@ -7,9 +7,13 @@ Phases, each fatal on failure:
   1. environment: versions, the card, its power limit;
   2. build every CUDA kernel from tgi_torch/csrc with nvcc;
   3. each kernel against its plain PyTorch version, at the full-width
-     shapes and at small ragged ones with points on the planes' borders:
-     the tri-plane gather (forward) and the tri-plane splat (backward,
-     ``d_planes`` and ``d_coords``);
+     shapes (uniform points, and a ray-ordered frustum march, some of
+     whose consecutive samples share a cell and whose outer rays leave
+     the box), at small ragged ones with points on the planes' borders,
+     at C = 6 and with planes and g off 16-byte alignment (the kernels'
+     scalar path), and with rows longer than a 32-lane group takes at
+     once (C = 132, C = 66): the tri-plane gather (forward) and the
+     tri-plane splat (backward, ``d_planes`` and ``d_coords``);
   4. the port's generation path at full width — the FFHQ-rebalanced 512
      generator (z/w 512, 256² backbone with 3 x 32-channel planes, 128²
      rays, 48 + 48 samples, SuperresolutionHybrid8XDC), weights drawn
@@ -45,10 +49,11 @@ Phases, each fatal on failure:
      between the modes;
   9. times: each kernel per launch (CUDA events, median) beside its
      plain version, a PyTorch library call computing the same function
-     and the card's bound; one full-width render; one tuning step split
-     into forward, backward and Adam; one stage-1 step split into
-     forward, backward and the three Adams; the sorted splat's prep and
-     segment kernel apart;
+     and the card's bound, and per pass the gather's and the splat's
+     ratio to their library calls and share of the bound; one
+     full-width render; one tuning step split into forward, backward
+     and Adam; one stage-1 step split into forward, backward and the
+     three Adams; the sorted splat's prep and segment kernel apart;
  10. the kernels of tgi's two kernel benches (scripts/bench_gather_vmem.py
      and scripts/bench_splat_sched.py), at their shapes (3 planes of
      256², the points of a 64² or 128² ray frustum march, 48 samples):
@@ -198,25 +203,60 @@ def phase_build():
                 log(f"  {src}: {line.strip()}")
 
 
-# (N, C, H, W, M): the full-width pass and two small ragged shapes.
-CHECK_SHAPES = ((1, 32, 256, 256, 128 * 128 * 48), (1, 8, 32, 32, 2085),
-                (2, 16, 32, 32, 1037))
+# (N, C, H, W, M, points): the full-width pass, two small ragged shapes,
+# C = 6 (the kernels' scalar path), a small shape whose planes and g sit
+# one float past a 16-byte boundary (the scalar path again), the
+# full-width pass in ray order (the frustum march of 128² rays x 48
+# samples, the order in which the renderer hands points to the kernels,
+# some of whose consecutive samples share a cell, which the splat sums
+# before its atomics, and whose outer rays leave the box), and two rows
+# longer than a group of 32 lanes takes at once: C = 132 on the vector
+# path (33 float4s) and C = 66 on the scalar path.
+CHECK_SHAPES = ((1, 32, 256, 256, 128 * 128 * 48, "uniform"),
+                (1, 8, 32, 32, 2085, "uniform"),
+                (2, 16, 32, 32, 1037, "uniform"),
+                (1, 6, 32, 32, 1037, "uniform"),
+                (1, 32, 32, 32, 515, "offset"),
+                (1, 32, 256, 256, 128 * 128 * 48, "rays"),
+                (1, 132, 16, 16, 300, "uniform"),
+                (1, 66, 16, 16, 300, "uniform"))
+
+
+def check_inputs(torch, gen, N, C, H, W, M, points):
+    """(planes_cl [N, 3, H, W, C], coords [N, M, 3], g [N, 3, M, C]) on
+    the card for one check shape, box_warp 1. Uniform points carry the
+    border points first; "offset" stores planes_cl and g one float past
+    a 16-byte boundary."""
+    planes_cl = torch.randn(N, 3, H, W, C, generator=gen)
+    if points == "rays":
+        from tgi_torch.scripts import frustum_points
+        R = math.isqrt(M // 48)
+        coords = (torch.from_numpy(frustum_points(R, R, 48)).float() / 2)
+        coords = coords[None].expand(N, -1, -1).contiguous()
+    else:
+        coords = torch.rand(N, M, 3, generator=gen) * 1.4 - 0.7
+        coords[:, :6] = torch.tensor(border_coords(H, W))
+    g = torch.randn(N, 3, M, C, generator=gen)
+    if points == "offset":
+        planes_cl, g = (torch.cat([torch.zeros(1), t.reshape(-1)]).to(
+            DEVICE)[1:].view(t.shape) for t in (planes_cl, g))
+        check(planes_cl.data_ptr() % 16 == 4 and g.data_ptr() % 16 == 4,
+              "the offset inputs are 16-byte aligned")
+    return planes_cl.to(DEVICE), coords.to(DEVICE), g.to(DEVICE)
 
 
 def phase_kernel_vs_plain(torch, gs):
     """Max abs error of the gather kernel against its plain version."""
     gen = torch.Generator().manual_seed(1)
     worst = 0.0
-    for N, C, H, W, M in CHECK_SHAPES:
-        planes = torch.randn(N, 3, C, H, W, generator=gen).to(DEVICE)
-        coords = torch.rand(N, M, 3, generator=gen) * 1.4 - 0.7
-        coords[:, :6] = torch.tensor(border_coords(H, W))
-        coords = coords.to(DEVICE)
-        got = gs.sample_triplanes_cuda(gs.channels_last(planes), coords, 1.0)
+    for N, C, H, W, M, points in CHECK_SHAPES:
+        planes_cl, coords, _ = check_inputs(torch, gen, N, C, H, W, M, points)
+        planes = planes_cl.permute(0, 1, 4, 2, 3)  # [N, 3, C, H, W] view
+        got = gs.sample_triplanes_cuda(planes, coords, 1.0)
         want = gs.sample_triplanes_plain(planes, coords, 1.0)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        log(f"triplane_gather vs plain: N={N} C={C} {H}x{W} M={M}: "
+        log(f"triplane_gather vs plain: N={N} C={C} {H}x{W} M={M} {points}: "
             f"max abs err {err:.3g}")
         check(err <= KERNEL_TOL, f"kernel disagrees with its plain version "
               f"by {err} > {KERNEL_TOL}")
@@ -230,21 +270,17 @@ def phase_splat_vs_plain(torch, gs):
     relative) error over all checks."""
     gen = torch.Generator().manual_seed(2)
     worst_abs = worst_rel = 0.0
-    for N, C, H, W, M in CHECK_SHAPES:
-        planes_cl = torch.randn(N, 3, H, W, C, generator=gen).to(DEVICE)
-        coords = torch.rand(N, M, 3, generator=gen) * 1.4 - 0.7
-        coords[:, :6] = torch.tensor(border_coords(H, W))
-        coords = coords.to(DEVICE)
-        g = torch.randn(N, 3, M, C, generator=gen).to(DEVICE)
+    for N, C, H, W, M, points in CHECK_SHAPES:
+        planes_cl, coords, g = check_inputs(torch, gen, N, C, H, W, M, points)
         got = gs.triplane_splat_cuda(planes_cl, coords, g, 1.0, True)
         want = gs.triplane_splat_plain(planes_cl, coords, g, 1.0, True)
         torch.cuda.synchronize()
         for what, a, b in zip(("d_planes", "d_coords"), got, want):
             err = (a - b).abs().max().item()
             scale = max(1.0, b.abs().max().item())
-            log(f"triplane_splat vs plain: N={N} C={C} {H}x{W} M={M}: "
-                f"{what} max abs err {err:.3g} (max |plain| {scale:.4g}, "
-                f"relative {err / scale:.3g})")
+            log(f"triplane_splat vs plain: N={N} C={C} {H}x{W} M={M} "
+                f"{points}: {what} max abs err {err:.3g} (max |plain| "
+                f"{scale:.4g}, relative {err / scale:.3g})")
             check(err <= SPLAT_TOL * scale,
                   f"splat {what} disagrees with its plain version: {err} > "
                   f"{SPLAT_TOL} * {scale}")
@@ -260,12 +296,8 @@ def phase_sorted_vs_plain(torch, gs):
     absolute and relative errors."""
     gen = torch.Generator().manual_seed(7)
     worst_abs = worst_rel = 0.0
-    for N, C, H, W, M in CHECK_SHAPES:
-        planes_cl = torch.randn(N, 3, H, W, C, generator=gen).to(DEVICE)
-        coords = torch.rand(N, M, 3, generator=gen) * 1.4 - 0.7
-        coords[:, :6] = torch.tensor(border_coords(H, W))
-        coords = coords.to(DEVICE)
-        g = torch.randn(N, 3, M, C, generator=gen).to(DEVICE)
+    for N, C, H, W, M, points in CHECK_SHAPES:
+        planes_cl, coords, g = check_inputs(torch, gen, N, C, H, W, M, points)
         got = gs.triplane_splat_sorted_cuda(coords, g, 1.0, H, W)
         again = gs.triplane_splat_sorted_cuda(coords, g, 1.0, H, W)
         want = gs.triplane_splat_sorted_plain(coords, g, 1.0, H, W)
@@ -277,9 +309,9 @@ def phase_sorted_vs_plain(torch, gs):
         scale = max(1.0, want.abs().max().item())
         c_err = (alone - fused).abs().max().item()
         c_scale = max(1.0, fused.abs().max().item())
-        log(f"triplane_splat_sorted vs plain: N={N} C={C} {H}x{W} M={M}: "
-            f"max abs err {err:.3g} (max |plain| {scale:.4g}, relative "
-            f"{err / scale:.3g}); two runs bitwise equal: "
+        log(f"triplane_splat_sorted vs plain: N={N} C={C} {H}x{W} M={M} "
+            f"{points}: max abs err {err:.3g} (max |plain| {scale:.4g}, "
+            f"relative {err / scale:.3g}); two runs bitwise equal: "
             f"{torch.equal(got, again)}; d_coords without d_planes vs "
             f"fused: max abs err {c_err:.3g}, bitwise equal "
             f"{torch.equal(alone, fused)}")
@@ -1136,7 +1168,7 @@ def phase_small_splat_times(torch, gs, bw):
     """``triplane_splat.cu`` at the C = 16 check shape (tgi's
     ``plane_splat`` case), beside its plain version, the library call and
     the bound."""
-    N, C, H, W, M = CHECK_SHAPES[2]
+    N, C, H, W, M, _ = CHECK_SHAPES[2]
     gen = torch.Generator().manual_seed(12)
     planes_cl = torch.randn(N, 3, H, W, C, generator=gen).to(DEVICE)
     coords = (torch.rand(N, M, 3, generator=gen) * 1.4 - 0.7).to(DEVICE)
@@ -1206,6 +1238,9 @@ def phase_times(torch, gs, G, params, bw):
             f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, F.grid_sample "
             f"{t_lib:.4f} ms, bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f}"
             f" MB at {bw / 1e12:.2f} TB/s)")
+        log(f"ratios, gather {name} pass: kernel / F.grid_sample "
+            f"{t_kernel / t_lib:.3f}, share of the bound "
+            f"{100 * bound / t_kernel:.1f} %")
         rows.append((t_kernel, t_plain, t_lib, bound, by))
 
     nchw5 = seen[0][0].contiguous()
@@ -1330,11 +1365,19 @@ def phase_splat_times(torch, gs, seen, bw):
         flops = N * 3 * M * (8 * C + 20)
         bound = max(nbytes / bw, flops / FP32_FLOPS) * 1e3
         by = "bytes" if nbytes / bw >= flops / FP32_FLOPS else "operations"
+        # With d_coords the planes are read and d_coords written too.
+        bound_c = bound + 4 * (N * 3 * H * W * C + N * M * 3) / bw * 1e3
         log(f"times, splat {name} pass (N={N}, M={M}, C={C}, {H}x{W}): "
             f"kernel {t_kernel:.4f} ms (with d_coords {t_kernel_c:.4f}), "
             f"plain {t_plain:.4f} ms, grid_sampler_2d_backward {t_lib:.4f} "
             f"ms (with d_grid {t_lib_c:.4f}), bound {bound:.4f} ms ({by}: "
-            f"{nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s)")
+            f"{nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; with d_coords "
+            f"{bound_c:.4f} ms)")
+        log(f"ratios, splat {name} pass: kernel / grid_sampler_2d_backward "
+            f"{t_kernel / t_lib:.3f} (with d_coords / with d_grid "
+            f"{t_kernel_c / t_lib_c:.3f}), share of the bound "
+            f"{100 * bound / t_kernel:.1f} % (with d_coords "
+            f"{100 * bound_c / t_kernel_c:.1f} %)")
         rows.append((t_kernel, t_plain, t_lib, bound, by))
     mean = [sum(r[i] for r in rows) / len(rows) for i in range(4)]
     return {"ms": mean[0], "plain_ms": mean[1], "library_ms": mean[2],

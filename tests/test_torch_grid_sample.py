@@ -19,6 +19,8 @@ from jax.experimental.pallas import tpu as pltpu
 from tgi.ops import grid_sample as jgs
 from tgi_torch.ops import grid_sample as gs
 
+from torch_helpers import ray_coords
+
 ATOL = 1e-5
 
 
@@ -36,9 +38,12 @@ def _border_coords(H, W, box_warp):
 
 
 def _inputs(seed, N, C, H, W, M, box_warp):
+    """An int M: points spanning beyond the box (zeros outside), plus
+    border cases. M = (Ry, Rx, S): a ray-ordered frustum march."""
     rng = np.random.RandomState(seed)
     planes = rng.randn(N, 3, C, H, W).astype(np.float32)
-    # Points spanning beyond the box (zeros outside), plus border cases.
+    if isinstance(M, tuple):
+        return planes, ray_coords(N, M, box_warp)
     coords = ((rng.rand(N, M, 3) * 1.4 - 0.7) * box_warp).astype(np.float32)
     b = _border_coords(H, W, box_warp)
     coords[:, :len(b)] = b
@@ -50,6 +55,12 @@ def _inputs(seed, N, C, H, W, M, box_warp):
     (2, 4, 9, 7, 77, 2.0),
     (1, 16, 16, 24, 1037, 1.0),
     (1, 32, 32, 32, 515, 0.9),
+    # C = 6: the kernel's scalar path on the card.
+    (1, 6, 16, 24, 1037, 1.0),
+    # Ray order, as the renderer gives the points: runs of samples that
+    # share a cell (the splat kernel sums them before its atomics) and
+    # rays that leave the box.
+    pytest.param(2, 32, 32, 32, (8, 8, 16), 1.0, id="rays-2-32-32-32-8x8x16"),
 ])
 def test_sample_triplanes_matches_tgi(N, C, H, W, M, box_warp):
     planes, coords = _inputs(0, N, C, H, W, M, box_warp)
@@ -57,7 +68,7 @@ def test_sample_triplanes_matches_tgi(N, C, H, W, M, box_warp):
                                            jnp.asarray(coords), box_warp))
     got = gs.sample_triplanes(torch.from_numpy(planes),
                               torch.from_numpy(coords), box_warp)
-    assert got.shape == (N, 3, M, C)
+    assert got.shape == (N, 3, coords.shape[1], C)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
 
 

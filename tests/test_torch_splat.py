@@ -37,6 +37,12 @@ SHAPES = [
     (1, 16, 16, 24, 1037, 1.0),
     (2, 16, 9, 7, 77, 2.0),
     (1, 8, 32, 32, 300, 1.0),
+    # C = 6: the kernel's scalar path on the card.
+    (1, 6, 16, 16, 700, 1.0),
+    # Ray order (M = rays x samples), as the renderer gives the points:
+    # runs of samples that share a cell, which the kernel sums before its
+    # atomics, and rays that leave the box.
+    pytest.param(2, 32, 32, 32, (8, 8, 16), 1.0, id="rays-2-32-32-32-8x8x16"),
 ]
 
 

@@ -9,6 +9,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from tgi.ops import grid_sample as jgs
 from tgi_torch.ops import grid_sample as gs
+from tgi_torch.scripts import frustum_points
 
 TOL = 1e-5
 
@@ -26,15 +27,31 @@ def border_coords(H, W, box_warp):
     return np.asarray(pts, np.float32)
 
 
+def ray_coords(N, rays, box_warp):
+    """World points ``[N, Ry*Rx*S, 3]`` of a frustum march,
+    ``rays = (Ry, Rx, S)``, in the renderer's ray-major order
+    (``tgi_torch.scripts.frustum_points`` scaled to ``box_warp``; batch
+    entry n is stretched by 1 + 0.05 n): some consecutive samples of a
+    ray share a cell on the planes, and the outer rays leave the box."""
+    pts = frustum_points(*rays) * (box_warp / 2)
+    return np.stack([pts * (1 + 0.05 * n) for n in range(N)]).astype(
+        np.float32)
+
+
 def splat_inputs(seed, N, C, H, W, M, box_warp):
-    """(planes [N,3,C,H,W], coords [N,M,3] with the border points first,
-    feature gradient [N,3,M,C]) from a numpy seed."""
+    """(planes [N,3,C,H,W], coords [N,M,3], feature gradient [N,3,M,C])
+    from a numpy seed. An int M draws uniform points with the border
+    points first; M = (Ry, Rx, S) takes :func:`ray_coords`."""
     rng = np.random.RandomState(seed)
     planes = rng.randn(N, 3, C, H, W).astype(np.float32)
-    coords = ((rng.rand(N, M, 3) * 1.4 - 0.7) * box_warp).astype(np.float32)
-    b = border_coords(H, W, box_warp)
-    coords[:, :len(b)] = b
-    g = rng.randn(N, 3, M, C).astype(np.float32)
+    if isinstance(M, tuple):
+        coords = ray_coords(N, M, box_warp)
+    else:
+        coords = ((rng.rand(N, M, 3) * 1.4 - 0.7) * box_warp).astype(
+            np.float32)
+        b = border_coords(H, W, box_warp)
+        coords[:, :len(b)] = b
+    g = rng.randn(N, 3, coords.shape[1], C).astype(np.float32)
     return planes, coords, g
 
 

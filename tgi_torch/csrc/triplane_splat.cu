@@ -15,32 +15,47 @@
 // read-modify-write of a [2, 2C] window) exist because the TPU has no
 // fast scatter; none of it survives. The payload stays fp32.
 //
-// One thread group per world point covers all three planes. Per plane it
-// scales the point by 2/box_warp, projects it ((x,y), (x,z), (z,x)),
-// unnormalises (align_corners=False) and floors exactly as
-// triplane_gather.cu does, so both kernels pick the same corners. The
-// group's lanes take neighbouring channels: lane c adds w_k * g[c] into
-// each valid corner with atomicAdd (a red.global.add.f32, its result
-// unused), so at C = 32 a warp's reduction into one corner is one
-// 128-byte line. A corner outside the plane gets no store. A loop over
-// channels covers any C. Where d_coords is asked for, each lane also
-// re-reads its channel of the four corners from the planes and forms
-//   dix = ((v01-v00)(1-wy) + (v11-v10)wy) * g,
-//   diy = ((v10-v00)(1-wx) + (v11-v01)wx) * g;
-// a shuffle reduction over the group sums them over C, they are scaled
-// by W/2 and H/2, and lane 0 folds the three planes' (dix, diy) into the
-// world axes in the kernel:
+// Per point and plane the kernel scales the point by 2/box_warp,
+// projects it ((x,y), (x,z), (z,x)), unnormalises (align_corners=False)
+// and floors exactly as triplane_gather.cu does, so both kernels pick
+// the same corners, and adds w_k * g into each of the four corners that
+// lie on the plane, w = ((1-wx)(1-wy), wx(1-wy), (1-wx)wy, wx wy), each
+// product rounded as the plain version rounds it. Where d_coords is
+// asked for, it also reads the four corners from the planes and forms
+//   dix = sum_c ((v01-v00)(1-wy) + (v11-v10)wy) g,
+//   diy = sum_c ((v10-v00)(1-wx) + (v11-v01)wx) g,
+// scaled by W/2 and H/2 and folded into the world axes:
 //   dx = s (d0.x + d1.x + d2.y), dy = s d0.y, dz = s (d1.y + d2.x).
-// No atomics are needed for d_coords, since one group owns the point.
+//
+// Mapping. A group of C/4 lanes (a power of two, at most 32; 8 at
+// C = 32) owns a run of kRun consecutive points, and each lane owns a
+// float4 of channels (a loop covers C > 128). The points come in the
+// renderer's order, ray-major, so a run is kRun samples of one ray. For
+// each plane the group keeps the four corner sums of the cell its last
+// point fell in, in registers, adds each point whose cell (x0, y0) is
+// the same, and flushes the sums with one float4 atomicAdd per corner on
+// the plane (atom.global.add.v4.f32, compute capability 9.x) when the
+// cell changes and at the end of the run. The float4s make 4 times
+// fewer atomics than one per channel; the sums cut them again where a
+// ray's samples share a cell, as on the plane that faces a frontal
+// camera, where a warp's groups would otherwise reduce into the same
+// addresses at once. The feature gradient g is read once, with
+// streaming loads (ld.global.cs), so that it does not evict d_planes
+// from the L2. d_coords is summed over the group's lanes with a shuffle
+// (3 steps at C = 32) and written by lane 0: one group owns the point,
+// so it needs no atomics. C % 4 != 0, or a g, planes or d_planes
+// pointer that is not 16-byte aligned, takes the same kernel with one
+// float per lane (the scalar path, chosen here from C and the
+// pointers). The grid covers the runs, one per group.
+//
+// The order of the fp32 adds into d_planes changes with the runs and
+// from run to run (atomics), so d_planes is not bitwise deterministic;
+// it agrees with the plain version to rounding.
 //
 // With want_dplanes = 0 the kernel skips the memset and the atomics and
 // writes d_coords alone: the point gradient of the TGI_SPLAT=mxu route,
 // whose d_planes comes from triplane_splat_sorted.cu (tgi too computes
 // d_coords apart from its mxu splat, tgi/ops/grid_sample.py:253-260).
-//
-// The order of the atomic adds changes from run to run, so d_planes is
-// not bitwise deterministic; it agrees with the plain version to
-// rounding.
 //
 // Layouts: g [N, 3, M, C] fp32; coords [N, M, 3] fp32; planes
 // [N*3, H, W, C] fp32 (channels last; read only for d_coords);
@@ -49,124 +64,263 @@
 // null.
 //
 // What bounds it. At the full-width render (N = 1, M = 128*128*48 =
-// 786,432, C = 32, 3 planes of 256x256) one pass reads g (302 MB),
-// coords (9.4 MB) and, for d_coords, the planes (25 MB, which the 50 MB
-// L2 holds), and writes d_planes (25 MB) and d_coords (9.4 MB): about
-// 371 MB, 0.11 ms at 3.35 TB/s. It also makes 4 * 75.5 M fp32
-// reductions into a 25 MB target that the L2 holds; the L2's atomic
-// rate, not device-memory bytes, is the likelier limit of this simple
-// design. Shared-memory pre-reduction of points that share a cell is a
-// later lever.
+// 786,432, C = 32, 3 planes of 256x256) one pass reads g (302 MB) and
+// coords (9.4 MB) and writes d_planes (25 MB): 336 MB, 0.1005 ms at
+// 3.35 TB/s. With d_coords it also reads the planes (25 MB) and writes
+// d_coords (9.4 MB): 371 MB, 0.111 ms. On an H100 80GB HBM3 at 700 W it
+// takes 0.41-0.42 ms per pass on a full-width render's points, 24 % of
+// that bound (0.12-0.13 x grid_sampler_2d_backward), and 0.52 ms with
+// d_coords, 21 % (tgi_torch/scripts/triplane_variants.py). What holds it
+// there, by the times of its variants, is the L2's reductions into the
+// 25 MB target: up to 4 * 3 * 8 = 96 float4 atomics per point at
+// C = 32; the same mapping with four scalar atomics per float4 takes
+// 1.45-1.71 ms. The runs' sums make it 6-7 % faster on a frontal
+// render and 49 % on the splat bench's points, where half of a ray's
+// consecutive samples share a cell on the (x, y) plane, and cost
+// nothing at yaw +0.35 without d_coords, 3 % with them.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRun = 8;  // consecutive points per group
 
-__device__ __forceinline__ float group_sum(float v, int lanes) {
-  // Lanes of one group are `lanes` consecutive threads, aligned within
-  // the warp, so xor offsets below `lanes` stay inside the group.
+// What one lane moves of a row: four channels, or one.
+template <int VEC> struct Lane;
+template <> struct Lane<4> { using T = float4; };
+template <> struct Lane<1> { using T = float; };
+
+template <class T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// acc + w * g, the product rounded on its own as the plain version's.
+__device__ __forceinline__ float add_scaled(float acc, float w, float g) {
+  return __fadd_rn(acc, __fmul_rn(w, g));
+}
+__device__ __forceinline__ float4 add_scaled(float4 acc, float w, float4 g) {
+  return make_float4(add_scaled(acc.x, w, g.x), add_scaled(acc.y, w, g.y),
+                     add_scaled(acc.z, w, g.z), add_scaled(acc.w, w, g.w));
+}
+
+// sum_c ((b - a) * s + (d - c) * t) * g over one lane's channels.
+__device__ __forceinline__ float corner_dot(float a, float b, float c,
+                                            float d, float s, float t,
+                                            float g) {
+  return ((b - a) * s + (d - c) * t) * g;
+}
+__device__ __forceinline__ float corner_dot(float4 a, float4 b, float4 c,
+                                            float4 d, float s, float t,
+                                            float4 g) {
+  return corner_dot(a.x, b.x, c.x, d.x, s, t, g.x) +
+         corner_dot(a.y, b.y, c.y, d.y, s, t, g.y) +
+         corner_dot(a.z, b.z, c.z, d.z, s, t, g.z) +
+         corner_dot(a.w, b.w, c.w, d.w, s, t, g.w);
+}
+
+// One point's footprint on one plane.
+struct Footprint {
+  int x0, y0;
+  float wx, wy;
+};
+
+__device__ __forceinline__ Footprint footprint(int plane, float x, float y,
+                                               float z, int H, int W) {
+  // Horizontal (width) and vertical (height) plane coordinates.
+  const float u = plane == 2 ? z : x;
+  const float v = plane == 0 ? y : (plane == 1 ? z : x);
+  const float ix = __fadd_rn(__fmul_rn(__fadd_rn(u, 1.0f), 0.5f * W), -0.5f);
+  const float iy = __fadd_rn(__fmul_rn(__fadd_rn(v, 1.0f), 0.5f * H), -0.5f);
+  const float x0f = floorf(ix);
+  const float y0f = floorf(iy);
+  Footprint f;
+  f.x0 = (int)x0f;
+  f.y0 = (int)y0f;
+  f.wx = __fsub_rn(ix, x0f);
+  f.wy = __fsub_rn(iy, y0f);
+  return f;
+}
+
+// Which of a cell's four corners lie on the plane: bits 00, 01, 10, 11.
+__device__ __forceinline__ int corners_on(int x0, int y0, int H, int W) {
+  const bool x0ok = x0 >= 0 && x0 < W;
+  const bool x1ok = x0 + 1 >= 0 && x0 + 1 < W;
+  const bool y0ok = y0 >= 0 && y0 < H;
+  const bool y1ok = y0 + 1 >= 0 && y0 + 1 < H;
+  return (y0ok && x0ok) | (y0ok && x1ok) << 1 | (y1ok && x0ok) << 2 |
+         (y1ok && x1ok) << 3;
+}
+
+// The cell whose four corner sums a group holds for one plane; n < 0:
+// none yet.
+struct Cell {
+  int x0, y0, n;
+};
+
+// Adds a cell's corner sums into its plane: one atomicAdd per corner
+// that lies on the plane.
+template <class T>
+__device__ __forceinline__ void flush(T* plane, Cell c, int H, int W,
+                                      int CV, const T (&acc)[4]) {
+  const int on = corners_on(c.x0, c.y0, H, W);
+  const long long o = ((long long)c.y0 * W + c.x0) * CV;
+  if (on & 1) atomicAdd(plane + o, acc[0]);
+  if (on & 2) atomicAdd(plane + o + CV, acc[1]);
+  if (on & 4) atomicAdd(plane + o + (long long)W * CV, acc[2]);
+  if (on & 8) atomicAdd(plane + o + (long long)(W + 1) * CV, acc[3]);
+}
+
+// Sum over the `lanes` lanes of a group: consecutive threads, aligned
+// within the warp, so xor offsets below `lanes` stay inside the group.
+__device__ __forceinline__ float group_sum(float v, int lanes,
+                                           unsigned mask) {
   for (int off = lanes / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
+    v += __shfl_xor_sync(mask, v, off);
   return v;
 }
 
-__global__ void triplane_splat_kernel(const float* __restrict__ g,
-                                      const float* __restrict__ coords,
-                                      const float* __restrict__ planes,
-                                      float* __restrict__ d_planes,
-                                      float* __restrict__ d_coords, int H,
-                                      int W, int C, long long M,
-                                      long long NM, float scale, int lanes,
-                                      bool want_dplanes) {
-  const int points_per_block = kThreads / lanes;
-  const long long p =
-      (long long)blockIdx.x * points_per_block + threadIdx.x / lanes;
-  const int lane = threadIdx.x % lanes;
-  // Threads past the last point do no work but still join the shuffles.
-  const bool active = p < NM;
-  const long long n = active ? p / M : 0;
-  const long long m = active ? p - n * M : 0;
-  const bool want_coords = planes != nullptr;
-
-  float x = 0.f, y = 0.f, z = 0.f;
-  if (active) {
-    const float* co = coords + p * 3;
-    x = __fmul_rn(scale, __ldg(co + 0));
-    y = __fmul_rn(scale, __ldg(co + 1));
-    z = __fmul_rn(scale, __ldg(co + 2));
-  }
-  const long long plane_size = (long long)H * W * C;
-  float dproj[3][2];
-
+template <int VEC, bool DPLANES, bool DCOORDS>
+__global__ void __launch_bounds__(kThreads)
+    triplane_splat_kernel(const float* __restrict__ g,
+                          const float* __restrict__ coords,
+                          const float* __restrict__ planes,
+                          float* __restrict__ d_planes,
+                          float* __restrict__ d_coords, int H, int W, int C,
+                          long long M, long long NM, float scale,
+                          int lanes) {
+  using T = typename Lane<VEC>::T;
+  const T* G = reinterpret_cast<const T*>(g);
+  const T* P = reinterpret_cast<const T*>(planes);
+  T* D = reinterpret_cast<T*>(d_planes);
+  const int CV = C / VEC;  // lane-sized pieces of a row
+  const int lane = threadIdx.x & (lanes - 1);
+  // The group's lanes, for its shuffles: groups of one warp run apart.
+  const unsigned mask =
+      lanes == 32 ? 0xffffffffu
+                  : ((1u << lanes) - 1u) << ((threadIdx.x & 31) & ~(lanes - 1));
+  const long long plane_size = (long long)H * W * CV;
+  const long long runs = (NM + kRun - 1) / kRun;
+  const float hw = 0.5f * W, hh = 0.5f * H;
+  const long long r =
+      ((long long)blockIdx.x * kThreads + threadIdx.x) / lanes;
+  if (r >= runs) return;  // the whole group: r is the group's
+  const long long p_end = (r + 1) * kRun < NM ? (r + 1) * kRun : NM;
+  // Pieces of the row, `lanes` at a time: the trip count is the
+  // group's, so every lane joins the shuffles; `has` masks the rest.
+  for (int j0 = 0; j0 < CV; j0 += lanes) {
+    const int j = j0 + lane;
+    const bool has = j < CV;
+    Cell open[3];
+    T acc[3][4];
 #pragma unroll
-  for (int plane = 0; plane < 3; ++plane) {
-    float dix = 0.f, diy = 0.f;
-    float wx = 0.f, wy = 0.f;
-    if (active) {
-      // Horizontal (width) and vertical (height) plane coordinates.
-      const float u = plane == 2 ? z : x;
-      const float v = plane == 0 ? y : (plane == 1 ? z : x);
-      const float ix =
-          __fadd_rn(__fmul_rn(__fadd_rn(u, 1.0f), 0.5f * W), -0.5f);
-      const float iy =
-          __fadd_rn(__fmul_rn(__fadd_rn(v, 1.0f), 0.5f * H), -0.5f);
-      const float x0f = floorf(ix);
-      const float y0f = floorf(iy);
-      wx = __fsub_rn(ix, x0f);
-      wy = __fsub_rn(iy, y0f);
-      const int x0 = (int)x0f;
-      const int y0 = (int)y0f;
-      const bool x0ok = x0 >= 0 && x0 < W;
-      const bool x1ok = x0 + 1 >= 0 && x0 + 1 < W;
-      const bool y0ok = y0 >= 0 && y0 < H;
-      const bool y1ok = y0 + 1 >= 0 && y0 + 1 < H;
-      const bool ok00 = y0ok && x0ok, ok01 = y0ok && x1ok;
-      const bool ok10 = y1ok && x0ok, ok11 = y1ok && x1ok;
-      const float w00 = (1.f - wx) * (1.f - wy), w01 = wx * (1.f - wy);
-      const float w10 = (1.f - wx) * wy, w11 = wx * wy;
-
-      const long long gp = n * 3 + plane;
-      const float* gv_row = g + (gp * M + m) * C;
-      float* dp = want_dplanes ? d_planes + gp * plane_size : nullptr;
-      const float* pl = want_coords ? planes + gp * plane_size : nullptr;
-      // Offsets of the four corner rows; only valid corners are touched.
-      const long long o00 = ((long long)y0 * W + x0) * C;
-      const long long o01 = o00 + C;
-      const long long o10 = o00 + (long long)W * C;
-      const long long o11 = o10 + C;
-
-      for (int c = lane; c < C; c += lanes) {
-        const float gv = __ldg(gv_row + c);
-        if (want_dplanes) {
-          if (ok00) atomicAdd(dp + o00 + c, w00 * gv);
-          if (ok01) atomicAdd(dp + o01 + c, w01 * gv);
-          if (ok10) atomicAdd(dp + o10 + c, w10 * gv);
-          if (ok11) atomicAdd(dp + o11 + c, w11 * gv);
+    for (int k = 0; k < 3; ++k) open[k] = Cell{0, 0, -1};
+    for (long long p = r * kRun; p < p_end; ++p) {
+      const int n = (int)(p / M);
+      const long long m = p - (long long)n * M;
+      const float* co = coords + p * 3;
+      const float x = __fmul_rn(scale, __ldg(co + 0));
+      const float y = __fmul_rn(scale, __ldg(co + 1));
+      const float z = __fmul_rn(scale, __ldg(co + 2));
+      float dx = 0.f, dy = 0.f, dz = 0.f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const Footprint f = footprint(k, x, y, z, H, W);
+        const long long gp = (long long)n * 3 + k;
+        const T gv = has ? __ldcs(G + (gp * M + m) * CV + j) : zero<T>();
+        const float ux = __fsub_rn(1.f, f.wx), uy = __fsub_rn(1.f, f.wy);
+        if (DPLANES) {
+          if (f.x0 != open[k].x0 || f.y0 != open[k].y0 || n != open[k].n) {
+            if (open[k].n >= 0 && has)
+              flush(D + (long long)(open[k].n * 3 + k) * plane_size + j,
+                    open[k], H, W, CV, acc[k]);
+            open[k] = Cell{f.x0, f.y0, n};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[k][c] = zero<T>();
+          }
+          acc[k][0] = add_scaled(acc[k][0], __fmul_rn(ux, uy), gv);
+          acc[k][1] = add_scaled(acc[k][1], __fmul_rn(f.wx, uy), gv);
+          acc[k][2] = add_scaled(acc[k][2], __fmul_rn(ux, f.wy), gv);
+          acc[k][3] = add_scaled(acc[k][3], __fmul_rn(f.wx, f.wy), gv);
         }
-        if (want_coords) {
-          const float v00 = ok00 ? __ldg(pl + o00 + c) : 0.f;
-          const float v01 = ok01 ? __ldg(pl + o01 + c) : 0.f;
-          const float v10 = ok10 ? __ldg(pl + o10 + c) : 0.f;
-          const float v11 = ok11 ? __ldg(pl + o11 + c) : 0.f;
-          dix += ((v01 - v00) * (1.f - wy) + (v11 - v10) * wy) * gv;
-          diy += ((v10 - v00) * (1.f - wx) + (v11 - v01) * wx) * gv;
+        if (DCOORDS && has) {
+          const int on = corners_on(f.x0, f.y0, H, W);
+          const T* b = P + gp * plane_size + j;
+          const long long o = ((long long)f.y0 * W + f.x0) * CV;
+          const long long o10 = o + (long long)W * CV;
+          const T v00 = (on & 1) ? __ldg(b + o) : zero<T>();
+          const T v01 = (on & 2) ? __ldg(b + o + CV) : zero<T>();
+          const T v10 = (on & 4) ? __ldg(b + o10) : zero<T>();
+          const T v11 = (on & 8) ? __ldg(b + o10 + CV) : zero<T>();
+          const float dix = corner_dot(v00, v01, v10, v11, uy, f.wy, gv) * hw;
+          const float diy = corner_dot(v00, v10, v01, v11, ux, f.wx, gv) * hh;
+          // Planes project (x, y), (x, z), (z, x).
+          if (k == 0) { dx += dix; dy += diy; }
+          if (k == 1) { dx += dix; dz += diy; }
+          if (k == 2) { dz += dix; dx += diy; }
+        }
+      }
+      if (DCOORDS) {
+        dx = group_sum(dx, lanes, mask);
+        dy = group_sum(dy, lanes, mask);
+        dz = group_sum(dz, lanes, mask);
+        if (lane == 0) {
+          float* dc = d_coords + p * 3;
+          if (j0 == 0) {
+            dc[0] = scale * dx;
+            dc[1] = scale * dy;
+            dc[2] = scale * dz;
+          } else {  // a later piece of a row longer than the group
+            dc[0] += scale * dx;
+            dc[1] += scale * dy;
+            dc[2] += scale * dz;
+          }
         }
       }
     }
-    if (want_coords) {  // uniform over the grid: every lane shuffles
-      dproj[plane][0] = group_sum(dix, lanes) * (0.5f * W);
-      dproj[plane][1] = group_sum(diy, lanes) * (0.5f * H);
+    if (DPLANES && has) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        if (open[k].n >= 0)
+          flush(D + (long long)(open[k].n * 3 + k) * plane_size + j,
+                open[k], H, W, CV, acc[k]);
     }
   }
+}
 
-  if (want_coords && active && lane == 0) {
-    float* dc = d_coords + p * 3;
-    dc[0] = scale * (dproj[0][0] + dproj[1][0] + dproj[2][1]);
-    dc[1] = scale * dproj[0][1];
-    dc[2] = scale * (dproj[1][1] + dproj[2][0]);
-  }
+template <int VEC, bool DPLANES, bool DCOORDS>
+int launch(const float* g, const float* coords, const float* planes,
+           float* d_planes, float* d_coords, int N, int H, int W, int C,
+           long long M, float scale, cudaStream_t stream) {
+  const int CV = C / VEC;
+  int lanes = 1;  // threads per run: next power of two >= CV, at most 32
+  while (lanes < CV && lanes < 32) lanes *= 2;
+  const long long NM = (long long)N * M;
+  const long long per_block = kThreads / lanes;
+  const long long runs = (NM + kRun - 1) / kRun;
+  const long long blocks = (runs + per_block - 1) / per_block;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const auto kernel = triplane_splat_kernel<VEC, DPLANES, DCOORDS>;
+  kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      g, coords, planes, d_planes, d_coords, H, W, C, M, NM, scale, lanes);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC>
+int launch_for(const float* g, const float* coords, const float* planes,
+               float* d_planes, float* d_coords, int N, int H, int W, int C,
+               long long M, float scale, cudaStream_t s) {
+  if (d_planes == nullptr)
+    return launch<VEC, false, true>(g, coords, planes, d_planes, d_coords, N,
+                                    H, W, C, M, scale, s);
+  if (d_coords == nullptr)
+    return launch<VEC, true, false>(g, coords, planes, d_planes, d_coords, N,
+                                    H, W, C, M, scale, s);
+  return launch<VEC, true, true>(g, coords, planes, d_planes, d_coords, N, H,
+                                 W, C, M, scale, s);
 }
 
 }  // namespace
@@ -195,16 +349,13 @@ int tgi_triplane_splat_f32(const float* g, const float* coords,
     const cudaError_t err = cudaMemsetAsync(d_planes, 0, bytes, s);
     if (err != cudaSuccess) return (int)err;
   }
-  int lanes = 1;  // threads per point: next power of two >= C, at most 32
-  while (lanes < C && lanes < 32) lanes *= 2;
-  const long long NM = (long long)N * M;
-  const long long points_per_block = kThreads / lanes;
-  const long long blocks = (NM + points_per_block - 1) / points_per_block;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  triplane_splat_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      g, coords, planes, d_planes, d_coords, H, W, C, M, NM, scale, lanes,
-      want_dplanes != 0);
-  return (int)cudaGetLastError();
+  const bool vec = C % 4 == 0 &&
+                   (uintptr_t)g % 16 == 0 && (uintptr_t)planes % 16 == 0 &&
+                   (uintptr_t)d_planes % 16 == 0;
+  return vec ? launch_for<4>(g, coords, planes, d_planes, d_coords, N, H, W,
+                             C, M, scale, s)
+             : launch_for<1>(g, coords, planes, d_planes, d_coords, N, H, W,
+                             C, M, scale, s);
 }
 
 const char* tgi_cuda_error_string(int err) {

@@ -1,0 +1,286 @@
+"""The tri-plane gather and splat kernels timed beside other versions of
+their sources, on the main path's own inputs, on a CUDA card.
+
+    python -m tgi_torch.scripts.triplane_variants [--variants DIR ...]
+        [--out FILE.json]
+
+Each ``DIR`` holds a ``triplane_gather.cu`` and/or a
+``triplane_splat.cu`` with the committed files' C entry points: an
+earlier commit's file, or a copy edited to try one change. The
+directory's name is the variant's name. Every variant is built with the
+package's ``nvcc`` flags into ``tgi_torch/_build/variants/``.
+
+The script renders with the full-width generator
+(``GeneratorConfig(neural_rendering_resolution=128)``, weights drawn from
+seed 0) from two cameras: ``chip_smoke.py``'s, at yaw +0.35, where a
+ray's consecutive samples rarely share a cell on any plane, and a
+frontal one, where they mostly do on the plane that faces the camera.
+It keeps the planes and points of each render's two sampling passes,
+coarse and fine (N = 1, 3 x 32 x 256², M = 786,432), and adds the
+splat bench's points (``bench_splat_sched.make_inputs``: a 64² x 48
+frustum march clipped to the box, M = 196,608, whose clipped points
+pile into the border cells) on the first render's coarse planes, each
+with a feature gradient drawn from seed 1. On them it checks every version against the plain
+one (the gather to 1e-5 abs, the splat to 1e-5 of the largest value) and
+times it (CUDA-event medians, ``scripts.median_ms``) beside the
+committed kernels, their scalar path (the same library, given planes, g
+and out one float past a 16-byte boundary), the library call
+(``F.grid_sample``, ``grid_sampler_2d_backward``) and the byte bound at
+an H100 SXM's 3.35 TB/s. The versions run in turns, in order and then in
+reverse, and each time is the mean of the two medians.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import os
+import subprocess
+
+import torch
+
+from tgi_torch.ops import _native
+from tgi_torch.ops import grid_sample as gs
+from tgi_torch.scripts import median_ms
+
+SOURCES = ("triplane_gather.cu", "triplane_splat.cu")
+TOL = 1e-5
+BW = 3.35e12  # an H100 SXM's device-memory rate, bytes/s
+
+
+def build_variants(dirs):
+    """{(src, name): CDLL} for every source of SOURCES found in a
+    directory of ``dirs``, all built at once."""
+    out_dir = os.path.join(_native.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for d in dirs:
+        name = os.path.basename(os.path.normpath(d))
+        for src in SOURCES:
+            path = os.path.join(d, src)
+            if not os.path.exists(path):
+                continue
+            so = os.path.join(out_dir, f"{name}-{src[:-3]}.so")
+            cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-o", so, path]
+            procs[src, name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), so)
+    libs = {}
+    for (src, name), (proc, so) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"{name}/{src}: nvcc exited {proc.returncode}"
+                             f"\n{out}")
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in _native.ENTRY_POINTS[src].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[src, name] = lib
+    return libs
+
+
+def main_path_passes(yaw, seed=0):
+    """[(planes [N,3,C,H,W], coords [N,M,3], box_warp)] of the coarse and
+    fine passes of one full-width render, the camera ``yaw`` off
+    frontal."""
+    import tgi_torch.render.renderer as renderer
+    from tgi_torch.apps.gen_samples import seed_z
+    from tgi_torch.models.generator import GeneratorConfig, TriPlaneGenerator
+    from tgi_torch.render.cameras import (fov_to_intrinsics, look_at_pose,
+                                          pack_camera)
+    dev = "cuda"
+    G = TriPlaneGenerator(GeneratorConfig(neural_rendering_resolution=128))
+    params = G.init(torch.Generator().manual_seed(seed), device=dev)
+    pivot = torch.tensor([0, 0, 0.2], device=dev)
+    intr = fov_to_intrinsics(18.837, device=dev)
+    cond = pack_camera(look_at_pose(math.pi / 2, math.pi / 2, pivot,
+                                    radius=2.7, device=dev)[None], intr)
+    cam = pack_camera(look_at_pose(math.pi / 2 + yaw, math.pi / 2, pivot,
+                                   radius=2.7, device=dev)[None], intr)
+    seen = []
+
+    def record(planes, coords, box_warp):
+        seen.append((planes, coords, box_warp))
+        return gs.sample_triplanes(planes, coords, box_warp)
+
+    renderer.sample_triplanes = record
+    try:
+        with torch.no_grad():
+            ws = G.mapping(params, seed_z(0, G.cfg.z_dim, dev), cond,
+                           truncation_psi=0.7, truncation_cutoff=14)
+            G.synthesis(params, ws, cam, det=True)
+    finally:
+        renderer.sample_triplanes = gs.sample_triplanes
+    return seen
+
+
+def off_by_one_float(t):
+    """``t``'s values in storage that starts one float past a 16-byte
+    boundary (the kernels' scalar path)."""
+    flat = torch.zeros(t.numel() + 1, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+def gather_run(lib, planes_cl, coords, out, scale):
+    N, _, H, W, C = planes_cl.shape
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.tgi_triplane_gather_f32(
+            planes_cl.data_ptr(), coords.data_ptr(), out.data_ptr(), N, H, W,
+            C, coords.shape[1], scale, stream)
+        if err:
+            raise RuntimeError(f"gather launch failed ({err})")
+    return run
+
+
+def splat_run(lib, planes_cl, coords, g, d_planes, d_coords, scale):
+    N, _, H, W, C = planes_cl.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    need = d_coords is not None
+
+    def run():
+        err = lib.tgi_triplane_splat_f32(
+            g.data_ptr(), coords.data_ptr(),
+            planes_cl.data_ptr() if need else None, d_planes.data_ptr(),
+            d_coords.data_ptr() if need else None, N, H, W, C,
+            coords.shape[1], scale, 1, stream)
+        if err:
+            raise RuntimeError(f"splat launch failed ({err})")
+    return run
+
+
+def in_turns(fns):
+    """{name: ms}: every fn timed in order, then in reverse; the mean of
+    its two medians."""
+    dev = torch.device("cuda")
+    first = {k: median_ms(f, dev) for k, f in fns.items()}
+    second = {k: median_ms(fns[k], dev) for k in reversed(list(fns))}
+    return {k: (first[k] + second[k]) / 2 for k in fns}
+
+
+def rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1)).item()
+
+
+def time_pass(libs, planes, coords, bwarp, gen):
+    """{kernel: {version: ms}}, the bounds and every version's error
+    against plain, on one sampling pass."""
+    import torch.nn.functional as F
+    planes_cl = planes.permute(0, 1, 3, 4, 2).contiguous()
+    N, _, H, W, C = planes_cl.shape
+    M = coords.shape[1]
+    scale = 2.0 / bwarp
+    g = torch.randn((N, 3, M, C), generator=gen, device="cuda")
+    inputs = {"": (planes_cl, g),
+              " (scalar path)": (off_by_one_float(planes_cl),
+                                 off_by_one_float(g))}
+    nchw = planes_cl.permute(0, 1, 4, 2, 3).reshape(N * 3, C, H, W)
+    nchw = nchw.contiguous()
+    grid = gs.project_onto_planes(scale * coords).reshape(N * 3, 1, M, 2)
+    g_lib = g.reshape(N * 3, M, C).permute(0, 2, 1).reshape(
+        N * 3, C, 1, M).contiguous()
+    # Each input read once, each output written once; the splat's
+    # d_coords also reads the planes and writes d_coords.
+    nbytes = 4 * (N * 3 * C * H * W + N * M * 3 + N * 3 * M * C)
+    extra = 4 * (N * 3 * C * H * W + N * M * 3)
+    row = {"bound_ms": {"gather": nbytes / BW * 1e3,
+                        "splat": nbytes / BW * 1e3,
+                        "splat_d_coords": (nbytes + extra) / BW * 1e3},
+           "err": {}}
+
+    def versions(src):
+        yield "committed", _native.library(src), ""
+        yield "committed, scalar path", _native.library(src), " (scalar path)"
+        for (s, name), lib in libs.items():
+            if s == src:
+                yield name, lib, ""
+
+    want = gs.sample_triplanes_plain(planes, coords, bwarp)
+    fns = {"F.grid_sample": lambda: F.grid_sample(
+        nchw, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=False)}
+    for name, lib, how in versions("triplane_gather.cu"):
+        out = torch.full_like(want, math.nan)  # what is not written fails
+        out = off_by_one_float(out) if how else out
+        fns[name] = gather_run(lib, inputs[how][0], coords, out, scale)
+        fns[name]()
+        err = row["err"][f"gather {name}"] = (out - want).abs().max().item()
+        if not err <= TOL:
+            raise SystemExit(f"gather {name!r} disagrees with plain by {err}")
+    row["gather"] = in_turns(fns)
+    want_p, want_c = gs.triplane_splat_plain(planes_cl, coords, g, bwarp,
+                                             True)
+    for key, need in (("splat", False), ("splat_d_coords", True)):
+        fns = {"grid_sampler_2d_backward": lambda need=need: torch.ops.aten.
+               grid_sampler_2d_backward(g_lib, nchw, grid, 0, 0, False,
+                                        [True, need])}
+        for name, lib, how in versions("triplane_splat.cu"):
+            pl, gg = inputs[how]
+            dp = torch.empty_like(planes_cl)
+            dc = torch.full_like(coords, math.nan) if need else None
+            fns[name] = splat_run(lib, pl, coords, gg, dp, dc, scale)
+            fns[name]()
+            err = max([rel_err(dp, want_p)] +
+                      ([rel_err(dc, want_c)] if need else []))
+            row["err"][f"{key} {name}"] = err
+            if not err <= TOL:
+                raise SystemExit(f"{key} {name!r} disagrees with plain by "
+                                 f"{err} of its largest value")
+        row[key] = in_turns(fns)
+    return row
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--variants", nargs="*", default=[],
+                    help="directories of other triplane_gather.cu / "
+                    "triplane_splat.cu sources")
+    ap.add_argument("--out", help="write the results as JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("triplane_variants needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"card: {card}; torch {torch.__version__}", flush=True)
+    _native.build_all()
+    libs = build_variants(args.variants)
+    results = {"card": card, "passes": {}}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    passes = {f"{name}, {kind}": seen
+              for name, yaw in (("yaw +0.35", 0.35), ("frontal", 0.0))
+              for kind, seen in zip(("coarse", "fine"),
+                                    main_path_passes(yaw))}
+    from tgi_torch.scripts import bench_splat_sched as bench
+    passes["splat bench's points"] = (passes["yaw +0.35, coarse"][0],
+                                      bench.make_inputs("cuda")["points"],
+                                      bench.BOX_WARP)
+    for pname, (planes, coords, bwarp) in passes.items():
+        row = results["passes"][pname] = time_pass(libs, planes, coords,
+                                                   bwarp, gen)
+        for key in ("gather", "splat", "splat_d_coords"):
+            lib_name = ("F.grid_sample" if key == "gather"
+                        else "grid_sampler_2d_backward")
+            bound = row["bound_ms"][key]
+            print(f"{pname} pass, {key} (M={coords.shape[1]}, bound "
+                  f"{bound:.4f} ms):", flush=True)
+            for k, ms in row[key].items():
+                print(f"  {ms:8.4f} ms  x{ms / row[key][lib_name]:5.2f} of "
+                      f"{lib_name}  {100 * bound / ms:5.1f} % of bound  {k}",
+                      flush=True)
+        print(f"{pname} pass, max errors against plain: "
+              f"{max(row['err'].values()):.3g}", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    return results
+
+
+if __name__ == "__main__":
+    main()
