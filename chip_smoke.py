@@ -53,7 +53,8 @@ Phases, each fatal on failure:
      ratio to their library calls and share of the bound; one
      full-width render; one tuning step split into forward, backward
      and Adam; one stage-1 step split into forward, backward and the
-     three Adams; the sorted splat's prep and segment kernel apart;
+     three Adams; the sorted splat's prep (key kernel, sort,
+     offsets-and-records kernel) and segment kernel apart;
  10. the kernels of tgi's two kernel benches (scripts/bench_gather_vmem.py
      and scripts/bench_splat_sched.py), at their shapes (3 planes of
      256², the points of a 64² or 128² ray frustum march, 48 samples):
@@ -74,9 +75,11 @@ Phases, each fatal on failure:
         index_add_) and the byte bound.
 
 Phase 3 also holds the sorted splat (``TGI_SPLAT=mxu``'s backward)
-against its plain version, checks that two runs give the same bits, and
-that ``triplane_splat.cu`` without its ``d_planes`` gives the fused
-run's ``d_coords``.
+against its plain version, at the same shapes and at one whose points
+pile into 8 cells by the thousand, checks its prep (sorted order,
+offsets, records) bit for bit against the plain prep and that two runs
+give the same bits, and that ``triplane_splat.cu`` without its
+``d_planes`` gives the fused run's ``d_coords``.
 
 TF32 is off throughout, so every comparison is in full fp32. The fused
 splat sums with atomics in an order that changes from run to run, so it
@@ -222,11 +225,18 @@ CHECK_SHAPES = ((1, 32, 256, 256, 128 * 128 * 48, "uniform"),
                 (1, 66, 16, 16, 300, "uniform"))
 
 
+# The sorted splat's check shapes: CHECK_SHAPES, and points piled into
+# 8 cells of a 64² plane by the thousand, so that a cell's segments run
+# for many 32-record chunks.
+SORTED_CHECK_SHAPES = CHECK_SHAPES + ((1, 32, 64, 64, 65536, "skewed"),)
+
+
 def check_inputs(torch, gen, N, C, H, W, M, points):
     """(planes_cl [N, 3, H, W, C], coords [N, M, 3], g [N, 3, M, C]) on
     the card for one check shape, box_warp 1. Uniform points carry the
     border points first; "offset" stores planes_cl and g one float past
-    a 16-byte boundary."""
+    a 16-byte boundary; "skewed" moves 7/8 of the uniform points to
+    within a fifth of a cell of 8 centres."""
     planes_cl = torch.randn(N, 3, H, W, C, generator=gen)
     if points == "rays":
         from tgi_torch.scripts import frustum_points
@@ -236,6 +246,12 @@ def check_inputs(torch, gen, N, C, H, W, M, points):
     else:
         coords = torch.rand(N, M, 3, generator=gen) * 1.4 - 0.7
         coords[:, :6] = torch.tensor(border_coords(H, W))
+    if points == "skewed":
+        pile = coords[:, 6:6 + M * 7 // 8]
+        centres = torch.rand(8, 3, generator=gen) - 0.5
+        jitter = (torch.rand(pile.shape, generator=gen) - 0.5) * (0.2 / H)
+        pile.copy_(centres.repeat(pile.shape[1] // 8 + 1, 1)[
+            :pile.shape[1]] + jitter)
     g = torch.randn(N, 3, M, C, generator=gen)
     if points == "offset":
         planes_cl, g = (torch.cat([torch.zeros(1), t.reshape(-1)]).to(
@@ -290,14 +306,25 @@ def phase_splat_vs_plain(torch, gs):
 
 
 def phase_sorted_vs_plain(torch, gs):
-    """The sorted splat against its plain version at the check shapes,
-    two runs of it bit for bit, and ``triplane_splat.cu``'s ``d_coords``
-    without its ``d_planes`` against the fused run's. Returns the max
-    absolute and relative errors."""
+    """The sorted splat against its plain version at the check shapes
+    and a skewed one, its prep (sorted order, offsets and records) bit
+    for bit against the plain prep, two runs of it bit for bit, and
+    ``triplane_splat.cu``'s ``d_coords`` without its ``d_planes`` against
+    the fused run's. Returns the max absolute and relative errors."""
     gen = torch.Generator().manual_seed(7)
     worst_abs = worst_rel = 0.0
-    for N, C, H, W, M, points in CHECK_SHAPES:
+    for N, C, H, W, M, points in SORTED_CHECK_SHAPES:
         planes_cl, coords, g = check_inputs(torch, gen, N, C, H, W, M, points)
+        prep = gs.splat_prep_cuda(coords, 1.0, H, W)
+        prep_plain = gs.splat_prep_plain(coords, 1.0, H, W)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(prep, prep_plain)]
+        longest = prep[1].diff(dim=1).max().item()
+        log(f"triplane_splat_sorted prep vs plain: N={N} C={C} {H}x{W} "
+            f"M={M} {points}: order, offsets, records bitwise equal {same}; "
+            f"longest floor-cell segment {longest}")
+        check(all(same), f"the sorted splat's prep differs from its plain "
+              f"version (order, offsets, records equal: {same})")
         got = gs.triplane_splat_sorted_cuda(coords, g, 1.0, H, W)
         again = gs.triplane_splat_sorted_cuda(coords, g, 1.0, H, W)
         want = gs.triplane_splat_sorted_plain(coords, g, 1.0, H, W)
@@ -674,11 +701,12 @@ def phase_stage2(torch, gs, G, params, tmp):
 
 
 def counts(gs):
-    """Launches per kernel; the sorted splat's two kernels apart."""
+    """Launches per kernel; the sorted splat's three kernels apart."""
     return {"triplane_gather": gs.LAUNCHES,
             "triplane_splat": gs.SPLAT_LAUNCHES,
             "triplane_splat_sorted": gs.SORTED_SPLAT_LAUNCHES,
-            "triplane_splat_cells": gs.SPLAT_CELLS_LAUNCHES}
+            "triplane_splat_keys": gs.SPLAT_KEYS_LAUNCHES,
+            "triplane_splat_offsets": gs.SPLAT_OFFSETS_LAUNCHES}
 
 
 def zero_counts(gs):
@@ -687,7 +715,7 @@ def zero_counts(gs):
     from tgi_torch.ops import gather_rows as gr
     from tgi_torch.ops import splat_sched as ss
     gs.LAUNCHES = gs.SPLAT_LAUNCHES = gs.SORTED_SPLAT_LAUNCHES = 0
-    gs.SPLAT_CELLS_LAUNCHES = 0
+    gs.SPLAT_KEYS_LAUNCHES = gs.SPLAT_OFFSETS_LAUNCHES = 0
     gr.GATHER_ROWS_LAUNCHES = gr.TILEWALK_LAUNCHES = 0
     ss.SPLAT_SCHED_LAUNCHES = 0
 
@@ -857,7 +885,8 @@ def phase_stage1_grads(torch, gs, st):
         with_coords = [top for need, _, top in flags if need]
         check(per_step == {"triplane_gather": 4, "triplane_splat": 4,
                            "triplane_splat_sorted": 0,
-                           "triplane_splat_cells": 0}
+                           "triplane_splat_keys": 0,
+                           "triplane_splat_offsets": 0}
               and len(with_coords) == 2,
               f"launches per stage-1 step {per_step}, {len(with_coords)} "
               f"with d_coords; expected 4 gathers and 4 splats, 2 with "
@@ -877,7 +906,8 @@ def phase_stage1_grads(torch, gs, st):
         coords_only = sum(need and not want for need, want, _ in flags)
         check(per_step_mxu == {"triplane_gather": 4, "triplane_splat": 2,
                                "triplane_splat_sorted": 4,
-                               "triplane_splat_cells": 4}
+                               "triplane_splat_keys": 4,
+                               "triplane_splat_offsets": 4}
               and coords_only == 2,
               f"launches per stage-1 step under TGI_SPLAT=mxu "
               f"{per_step_mxu}; expected 4 gathers, 4 sorted splats and 2 "
@@ -994,14 +1024,16 @@ def phase_stage1_stage2(torch, gs, G, params, nets, tmp, mode, label):
     check(all(math.isfinite(x) for x in proj_losses + info["losses"]),
           "non-finite loss")
     sorted_mode = mode == "mxu"
+    sorted1 = 4 * STAGE1_STEPS if sorted_mode else 0
+    sorted2 = 2 * PTI_STEPS if sorted_mode else 0
     want1 = {"triplane_gather": 4 * STAGE1_STEPS,
              "triplane_splat": (2 if sorted_mode else 4) * STAGE1_STEPS,
-             "triplane_splat_sorted": 4 * STAGE1_STEPS if sorted_mode else 0,
-             "triplane_splat_cells": 4 * STAGE1_STEPS if sorted_mode else 0}
+             "triplane_splat_sorted": sorted1, "triplane_splat_keys": sorted1,
+             "triplane_splat_offsets": sorted1}
     want2 = {"triplane_gather": 2 * (PTI_STEPS + png_renders),
              "triplane_splat": 0 if sorted_mode else 2 * PTI_STEPS,
-             "triplane_splat_sorted": 2 * PTI_STEPS if sorted_mode else 0,
-             "triplane_splat_cells": 2 * PTI_STEPS if sorted_mode else 0}
+             "triplane_splat_sorted": sorted2, "triplane_splat_keys": sorted2,
+             "triplane_splat_offsets": sorted2}
     check(stage1 == want1 and stage2 == want2,
           f"launches stage 1 {stage1}, stage 2 {stage2}; expected {want1}, "
           f"{want2}")
@@ -1110,14 +1142,18 @@ def phase_stage1_step_times(torch, gs, st, mode="pack", steps=6, warmup=2):
 def phase_sorted_times(torch, gs, seen, bw):
     """The sorted splat per pass on the main path's inputs (the stage-1
     step's four backward passes under TGI_SPLAT=mxu): whole, its prep
-    (cell kernel, sort, search) and its segment kernel apart, beside
-    ``triplane_splat.cu``, the plain version and
-    ``grid_sampler_2d_backward`` on the same input, and the bound."""
+    (key kernel, the stable sort, the offsets-and-records kernel) and
+    its segment kernel apart, beside ``triplane_splat.cu``, the plain
+    version and ``grid_sampler_2d_backward`` on the same input, and the
+    bound."""
     rows = []
     for i, (coords, g, bwarp, H, W) in enumerate(seen):
         N, M = coords.shape[:2]
         C = g.shape[3]
-        order, offsets = gs.splat_prep_cuda(coords, bwarp, H, W)
+        keys = gs.splat_keys_cuda(coords, bwarp, H, W)
+        keys_s, order = torch.sort(keys, stable=True)
+        offsets, records = gs.splat_offsets_cuda(coords, keys_s, order,
+                                                 bwarp, H, W)
         planes_cl = torch.empty((N, 3, H, W, C), device=DEVICE)  # not read
         nchw = planes_cl.permute(0, 1, 4, 2, 3).reshape(N * 3, C, H, W)
         grid = gs.project_onto_planes((2.0 / bwarp) * coords).reshape(
@@ -1129,8 +1165,13 @@ def phase_sorted_times(torch, gs, seen, bw):
                 coords, g, bwarp, H, W)),
             "prep_ms": cuda_ms(torch, lambda: gs.splat_prep_cuda(
                 coords, bwarp, H, W)),
+            "keys_ms": cuda_ms(torch, lambda: gs.splat_keys_cuda(
+                coords, bwarp, H, W)),
+            "sort_ms": cuda_ms(torch, lambda: torch.sort(keys, stable=True)),
+            "offsets_ms": cuda_ms(torch, lambda: gs.splat_offsets_cuda(
+                coords, keys_s, order, bwarp, H, W)),
             "segment_ms": cuda_ms(torch, lambda: gs.splat_segments_cuda(
-                coords, g, order, offsets, bwarp, H, W)),
+                g, records, offsets, H, W)),
             "fused_splat_ms": cuda_ms(torch, lambda: gs.triplane_splat_cuda(
                 planes_cl, coords, g, bwarp, False)),
             "plain_ms": cuda_ms(torch, lambda: gs.triplane_splat_sorted_plain(
@@ -1148,15 +1189,18 @@ def phase_sorted_times(torch, gs, seen, bw):
         t["bound_ms"] = max(nbytes / bw, flops / FP32_FLOPS) * 1e3
         t["bound_by"] = ("bytes" if nbytes / bw >= flops / FP32_FLOPS
                          else "operations")
-        # The sorted design's own least traffic on top: its int32 entry
-        # list and segment offsets, each read once.
-        design = nbytes + 4 * (N * 3 * 4 * M + N * 3 * (H * W + 1))
+        # The sorted design's own least traffic on top, each written once
+        # and read once: its int32 keys, the sort's int64 indices, the
+        # 16-byte records and the offsets.
+        T = N * 3 * M
+        design = nbytes + 2 * (4 * T + 8 * T + 16 * T + 4 * offsets.numel())
         t["design_bound_ms"] = max(design / bw, flops / FP32_FLOPS) * 1e3
         log(f"times, sorted splat pass {i} (N={N}, M={M}, C={C}, {H}x{W}): "
             + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else
                         f"{k} {v}" for k, v in t.items())
-            + f" (bound {nbytes / 1e6:.1f} MB, with the entries and "
-            f"offsets {design / 1e6:.1f} MB, at {bw / 1e12:.2f} TB/s)")
+            + f" (bound {nbytes / 1e6:.1f} MB, with the keys, indices, "
+            f"records and offsets {design / 1e6:.1f} MB, at "
+            f"{bw / 1e12:.2f} TB/s)")
         rows.append(t)
     out = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]
            if k != "bound_by"}
@@ -1765,7 +1809,8 @@ def main():
         "source": "tgi_torch/csrc/triplane_splat_sorted.cu",
         "replaces": "tgi/ops/pallas/splat_mxu.py:112",
         "launches": total(mxu, "triplane_splat_sorted"),
-        "cells_launches": total(mxu, "triplane_splat_cells"),
+        "keys_launches": total(mxu, "triplane_splat_keys"),
+        "offsets_launches": total(mxu, "triplane_splat_offsets"),
         "launches_by_path": {"run_pti_stage1": mxu["stage1"][
                                  "triplane_splat_sorted"],
                              "run_pti_stage2": mxu["stage2"][

@@ -121,6 +121,24 @@ def test_schedules_and_layouts_are_checked():
     ss.splat_sched(rows % 256, wg, 16, 16, "walk")   # walk takes any 16x16
 
 
+def test_cuda_wrapper_refuses_a_misaligned_payload():
+    """The kernel loads four bf16 of a row at once, so the wrapper
+    refuses a payload that does not start on an 8-byte boundary, before
+    it looks for a card, and launches nothing."""
+    rows, wg = _random_entries(4, 64, 64, 100)
+    flat = torch.zeros(wg.numel() + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(wg.shape)
+    shifted.copy_(wg)
+    before = ss.SPLAT_SCHED_LAUNCHES
+    with pytest.raises(ValueError, match="8-byte"):
+        ss.splat_sched_cuda(rows, shifted, 64, 64, "walk")
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.splat_sched_cuda(rows, wg, 64, 64, "walk")
+    assert ss.SPLAT_SCHED_LAUNCHES == before
+    close(ss.splat_sched(rows, shifted, 64, 64, "walk"),
+          ss.splat_sched(rows, wg, 64, 64, "walk").numpy(), 0)
+
+
 @pytest.mark.parametrize("H,W", [(32, 48), (64, 64)])
 def test_pack_helpers_match_splat_pack(H, W):
     rng = np.random.RandomState(H + W)

@@ -9,7 +9,10 @@ card. Here it is held against
   kernel ``plane_splat_mxu`` in interpret mode at C = 32 (fp32 payload,
   so 1e-5 on both gradients);
 * ``triplane_splat_plain``, the ``index_add_`` version of the same sum;
-* itself: two runs give the same bits.
+* itself: two runs give the same bits;
+
+and its prep (point keys on the grid of floor cells, the sentinel,
+offsets, records) against a numpy count.
 
 And the routing: ``TriplaneSample``'s backward reads ``TGI_SPLAT`` at
 each call, ``"mxu"`` takes the sorted splat with ``d_coords`` from the
@@ -32,7 +35,7 @@ SHAPES = [
     (1, 16, 16, 24, 1037, 1.0),
     (2, 16, 9, 7, 77, 2.0),
     (1, 8, 32, 32, 2085, 1.0),
-    (1, 40, 8, 8, 100, 1.0),     # C > 32: the kernel's channel loop
+    (1, 40, 8, 8, 100, 1.0),     # C = 40: 10 float4 lanes in a group of 16
 ]
 
 
@@ -69,32 +72,81 @@ def test_sorted_plain_is_bitwise_repeatable():
     assert torch.equal(a, b)
 
 
-def test_cells_and_segments():
-    """Entry cells use the gather's corners, the sentinel H*W marks a
-    corner outside the plane, and the segments cover every in-plane
-    entry once, in cell order."""
-    H, W = 12, 10
-    coords = torch.from_numpy(border_coords(H, W, 1.0))[None]
-    cells = gs.splat_cells_plain(coords, 1.0, H, W)
-    assert cells.dtype == torch.int32 and cells.shape == (
-        3, 4 * coords.shape[1])
-    x0, y0, _, _ = gs._point_indices(
-        gs.project_onto_planes(2.0 * coords).reshape(3, -1, 2), H, W)
-    for k, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
-        yy, xx = y0 + dy, x0 + dx
-        ok = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
-        want = torch.where(ok, yy * W + xx, H * W)
-        assert torch.equal(cells[:, k::4].long(), want)
-    assert (cells == H * W).any() and (cells < H * W).any()
-    order, offsets = gs.splat_sort(cells, H, W)
-    assert offsets.dtype == torch.int32 and offsets.shape == (3, H * W + 1)
-    for p in range(3):
-        sorted_cells = cells[p][order[p]]
-        assert (sorted_cells.diff() >= 0).all()
-        for c in range(H * W):
-            seg = sorted_cells[offsets[p, c]:offsets[p, c + 1]]
-            assert (seg == c).all()
-        assert offsets[p, -1] == (cells[p] < H * W).sum()
+def _numpy_floor_cells(coords, box_warp, H, W):
+    """(fx, fy, wx, wy) float32 ``[N*3*M]``: each (plane, point)'s floor
+    cell and fractions, planes (x, y), (x, z), (z, x), in numpy."""
+    p = coords.astype(np.float32) * np.float32(2.0 / box_warp)
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    u = np.stack([x, x, z], 1).reshape(-1)
+    v = np.stack([y, z, x], 1).reshape(-1)
+    ix = (u + np.float32(1)) * np.float32(W / 2) - np.float32(0.5)
+    iy = (v + np.float32(1)) * np.float32(H / 2) - np.float32(0.5)
+    fx, fy = np.floor(ix), np.floor(iy)
+    return fx, fy, ix - fx, iy - fy
+
+
+@pytest.mark.parametrize("N,H,W,box_warp", [(1, 12, 10, 1.0),
+                                            (2, 7, 9, 2.0),
+                                            (1, 16, 5, 0.9)])
+def test_prep_matches_a_numpy_count(N, H, W, box_warp):
+    """One key per (plane, point): its floor cell on the (H+1) x (W+1)
+    grid from -1, its plane's sentinel where the floor cell is off that
+    grid; one stable order of all planes' keys; offsets equal to a
+    numpy count's running sum; records (index, wx, wy, 0) in sorted
+    order. The points include the border points (floor cells -1 and
+    H-1, W-1) and points past the borders."""
+    _, coords, _ = splat_inputs(70 + H, N, 4, H, W, 301, box_warp)
+    c = torch.from_numpy(coords)
+    keys = gs.splat_keys_plain(c, box_warp, H, W)
+    order, offsets, records = gs.splat_prep_plain(c, box_warp, H, W)
+    fx, fy, wx, wy = _numpy_floor_cells(coords, box_warp, H, W)
+    on = (fx >= -1) & (fx <= W - 1) & (fy >= -1) & (fy <= H - 1)
+    assert on.any() and not on.all()
+    assert (on & (fx == -1)).any() and (on & (fy == -1)).any()
+    assert (on & (fx == W - 1)).any() and (on & (fy == H - 1)).any()
+    cells = (H + 1) * (W + 1)
+    local = np.where(on, (fy + 1) * (W + 1) + fx + 1, cells).astype(np.int64)
+    plane = np.arange(N * 3 * 301) // 301
+    want = plane * (cells + 1) + local
+    assert keys.dtype == torch.int32
+    np.testing.assert_array_equal(keys.numpy(), want)
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.argsort(want, kind="stable"))
+    count = np.bincount(want, minlength=N * 3 * (cells + 1))
+    assert offsets.dtype == torch.int32
+    assert offsets.shape == (N * 3, cells + 1)
+    np.testing.assert_array_equal(offsets.numpy().reshape(-1),
+                                  np.cumsum(count) - count)
+    idx = order.numpy()
+    assert records.dtype == torch.int32 and records.shape == (N * 3 * 301, 4)
+    np.testing.assert_array_equal(records[:, 0].numpy(), idx)
+    np.testing.assert_array_equal(records[:, 1].numpy().view(np.float32),
+                                  wx[idx])
+    np.testing.assert_array_equal(records[:, 2].numpy().view(np.float32),
+                                  wy[idx])
+    assert (records[:, 3] == 0).all()
+
+
+def test_segments_plain_takes_each_corner_from_its_floor_cell():
+    """With g = 1 and C = 1, output cell (y, x) sums the corner weights
+    of the points whose floor cells are (y, x), (y, x-1), (y-1, x) and
+    (y-1, x-1): checked point by point against numpy."""
+    H, W = 6, 5
+    _, coords, _ = splat_inputs(80, 1, 1, H, W, 200, 1.0)
+    g = torch.ones(1, 3, 200, 1)
+    got = gs.triplane_splat_sorted_plain(torch.from_numpy(coords), g, 1.0,
+                                         H, W).numpy().reshape(3, H, W)
+    fx, fy, wx, wy = _numpy_floor_cells(coords, 1.0, H, W)
+    want = np.zeros((3, H, W))
+    for i in range(3 * 200):
+        for dy, dx, w in ((0, 0, (1 - wx[i]) * (1 - wy[i])),
+                          (0, 1, wx[i] * (1 - wy[i])),
+                          (1, 0, (1 - wx[i]) * wy[i]),
+                          (1, 1, wx[i] * wy[i])):
+            yy, xx = int(fy[i]) + dy, int(fx[i]) + dx
+            if 0 <= yy < H and 0 <= xx < W:
+                want[i // 200, yy, xx] += w
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("need_coords", [True, False])
@@ -166,10 +218,37 @@ def test_sorted_kernel_wrappers_raise_without_a_card(monkeypatch):
                                want_dplanes=False)
     monkeypatch.setenv("TGI_SPLAT", "mxu")
     before = (gs.LAUNCHES, gs.SPLAT_LAUNCHES, gs.SORTED_SPLAT_LAUNCHES,
-              gs.SPLAT_CELLS_LAUNCHES)
+              gs.SPLAT_KEYS_LAUNCHES, gs.SPLAT_OFFSETS_LAUNCHES)
     port_splat_grads(planes, coords, g, 1.0)
     assert (gs.LAUNCHES, gs.SPLAT_LAUNCHES, gs.SORTED_SPLAT_LAUNCHES,
-            gs.SPLAT_CELLS_LAUNCHES) == before
+            gs.SPLAT_KEYS_LAUNCHES, gs.SPLAT_OFFSETS_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("wrapper", ["keys", "prep", "offsets", "segments"])
+def test_sorted_prep_and_segment_wrappers_raise_without_a_card(wrapper):
+    """Each kernel wrapper of the sorted splat raises on CPU tensors, and
+    the offsets and segment wrappers check their inputs' shapes first."""
+    _, coords, g = splat_inputs(66, 1, 8, 16, 16, 50, 1.0)
+    c, g = torch.from_numpy(coords), torch.from_numpy(g)
+    order, offsets, records = gs.splat_prep_plain(c, 1.0, 16, 16)
+    keys_s = gs.splat_keys_plain(c, 1.0, 16, 16).sort(stable=True)[0]
+    call, bad = {
+        "keys": (lambda: gs.splat_keys_cuda(c, 1.0, 16, 16), None),
+        "prep": (lambda: gs.splat_prep_cuda(c, 1.0, 16, 16), None),
+        "offsets": (lambda o=order: gs.splat_offsets_cuda(
+            c, keys_s, o, 1.0, 16, 16), lambda: order.int()),
+        "segments": (lambda r=records: gs.splat_segments_cuda(
+            g, r, offsets, 16, 16), lambda: records[:-1]),
+    }[wrapper]
+    before = (gs.SORTED_SPLAT_LAUNCHES, gs.SPLAT_KEYS_LAUNCHES,
+              gs.SPLAT_OFFSETS_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        call()
+    if bad is not None:
+        with pytest.raises(ValueError, match="must be int"):
+            call(bad())
+    assert (gs.SORTED_SPLAT_LAUNCHES, gs.SPLAT_KEYS_LAUNCHES,
+            gs.SPLAT_OFFSETS_LAUNCHES) == before
 
 
 def test_sorted_splat_rejects_bad_shapes():

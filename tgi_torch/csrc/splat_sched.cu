@@ -23,23 +23,38 @@
 // at most once). Where the TPU adds a window with one one-hot matmul
 // [256, B] x [B, 128] into a VMEM accumulator, here one CTA takes a
 // block, one thread per entry; in each pass every warp takes a ballot
-// of its entries in the window and adds each such entry's payload (bf16
-// widened to fp32) to the accumulator in device memory with atomicAdd,
-// 32 channels at a time. A block-wide min sets the walk's next window.
-// The order of the atomic adds changes from run to run, so the result is
-// not bitwise repeatable. Rows outside [0, H*W) are dropped; a walk
-// whose first entry has one starts at the smallest row's window.
+// of its entries in the window and groups them by row
+// (__match_any_sync). Lane l owns channels 4l..4l+3 of a row: per entry
+// it makes one 8-byte payload load (4 bf16, widened to fp32) and sums
+// the entries of one row in registers (the block-local order keeps a
+// ray's samples together, and they often share a cell); each row then
+// reaches the accumulator in device memory with one float4 atomicAdd per
+// lane (atom.global.add.v4.f32, compute capability 9.x). A block-wide
+// min sets the walk's next window. The order of the atomic adds changes
+// from run to run, so the result is not bitwise repeatable. Rows outside
+// [0, H*W) are dropped; a walk whose first entry has one starts at the
+// smallest row's window.
 //
 // Layout: H and W multiples of 16 (tile numbering); static9 and nbhd
-// also need H, W >= 64 and H*W >= 9 * 256.
+// also need H, W >= 64 and H*W >= 9 * 256; wg 8-byte aligned.
 //
 // What bounds it: device-memory bytes. At G = 3, 256^2 planes,
 // E = 786,432 entries a plane: wg 604 MB read, rows 9.4 MB read, acc
 // 100.7 MB written, 0.213 ms at 3.35 TB/s; the 302 M adds take 0.005 ms
 // at 67 TFLOP/s. The atomics go to the L2, which holds about half of the
-// 100.7 MB accumulator.
+// 100.7 MB accumulator. The earlier design, four 2-byte loads and four
+// scalar atomicAdds of 32 consecutive floats per entry, took 5.5 x that
+// bound on an H100 (tgi_torch/scripts/triplane_variants.py). The float4
+// atomics alone moved it by 3-4 %: the L2 saw the same 128-byte
+// reductions. What the L2 reduces is the limit, so this design sends it
+// one row per distinct row of a ballot: summing runs of one row halved
+// the walk, grouping each ballot by row took another 1-24 % (nbhd and
+// static9 the most). A 128 KB shared-memory window flushed once per pass
+// took 9-10 times as long (one block per SM, shared atomics and two
+// barriers per pass).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -66,27 +81,48 @@ __device__ int window_of(int row, int nrows) {
   return min((row / kWindow) * kWindow, nrows - kWindow);
 }
 
-__device__ float bf16_to_float(unsigned short bits) {
-  return __uint_as_float((unsigned)bits << 16);
+// Lane `lane`'s four payload elements of entry e, widened to fp32; a
+// streaming load, since each payload is read once.
+__device__ __forceinline__ float4 payload(
+    const unsigned short* __restrict__ wg, long long e, int lane) {
+  const uint2 b = __ldcs(reinterpret_cast<const uint2*>(wg + e * kLanes) +
+                         lane);
+  return make_float4(__uint_as_float(b.x << 16),
+                     __uint_as_float(b.x & 0xffff0000u),
+                     __uint_as_float(b.y << 16),
+                     __uint_as_float(b.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 // Every lane of the warp calls this. Adds the payloads of the warp's
-// entries whose `sel` is set: lane l takes channels l, l + 32, l + 64
-// and l + 96, so each atomic instruction covers 32 consecutive floats.
+// entries whose `sel` is set: the entries that share a row (found with
+// __match_any_sync) are summed in registers, in lane order, and reach the
+// accumulator with one float4 atomic per lane.
 __device__ void add_selected(bool sel, int row, long long e_warp,
                              const unsigned short* __restrict__ wg,
                              float* __restrict__ acc) {
   const int lane = threadIdx.x & 31;
-  unsigned ballot = __ballot_sync(0xffffffffu, sel);
-  while (ballot) {
-    const int j = __ffs(ballot) - 1;
-    ballot &= ballot - 1;
-    const int r = __shfl_sync(0xffffffffu, row, j);
-    const unsigned short* src = wg + (e_warp + j) * kLanes;
-    float* dst = acc + (long long)r * kLanes;
-#pragma unroll
-    for (int k = 0; k < kLanes / 32; ++k)
-      atomicAdd(dst + lane + 32 * k, bf16_to_float(__ldg(src + lane + 32 * k)));
+  if (__ballot_sync(0xffffffffu, sel) == 0) return;
+  // Lanes not selected match no one: -1 - lane is no row.
+  const unsigned peers = __match_any_sync(0xffffffffu, sel ? row : -1 - lane);
+  unsigned leaders =
+      __ballot_sync(0xffffffffu, sel && __ffs(peers) - 1 == lane);
+  while (leaders) {
+    const int l = __ffs(leaders) - 1;
+    leaders &= leaders - 1;
+    const int r = __shfl_sync(0xffffffffu, row, l);
+    unsigned group = __shfl_sync(0xffffffffu, peers, l);
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    while (group) {
+      const int j = __ffs(group) - 1;
+      group &= group - 1;
+      sum = add4(sum, payload(wg, e_warp + j, lane));
+    }
+    atomicAdd(reinterpret_cast<float4*>(acc + (long long)r * kLanes) + lane,
+              sum);
   }
 }
 
@@ -164,15 +200,17 @@ splat_sched_kernel(const unsigned short* __restrict__ wg,
 
 extern "C" {
 
-// wg [G, E, 128] bf16 (as 16-bit words), rows [G, E] int32, acc
-// [G, H*W, 128] fp32, zeroed by the caller; all contiguous on the current
-// device. schedule: 0 walk, 1 static9, 2 nbhd. Launches on `stream`,
-// allocates nothing, and returns cudaGetLastError() (0 = ok).
+// wg [G, E, 128] bf16 (as 16-bit words, 8-byte aligned), rows [G, E]
+// int32, acc [G, H*W, 128] fp32 (16-byte aligned), zeroed by the caller;
+// all contiguous on the current device. schedule: 0 walk, 1 static9,
+// 2 nbhd. Launches on `stream`, allocates nothing, and returns
+// cudaGetLastError() (0 = ok).
 int tgi_splat_sched(const void* wg, const int* rows, float* acc, int G,
                     long long E, int H, int W, int schedule, void* stream) {
   const long long nrows = (long long)H * W;
   if (G <= 0 || G > 65535 || E <= 0 || H <= 0 || W <= 0 || H % 16 != 0 ||
-      W % 16 != 0 || nrows >= kNone || schedule < kWalk || schedule > kNbhd)
+      W % 16 != 0 || nrows >= kNone || schedule < kWalk ||
+      schedule > kNbhd || (uintptr_t)wg % 8 != 0 || (uintptr_t)acc % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (schedule != kWalk && (H < 64 || W < 64 || nrows < 9 * kWindow))
     return (int)cudaErrorInvalidValue;

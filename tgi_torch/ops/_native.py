@@ -98,11 +98,14 @@ ENTRY_POINTS = {
                                    _F, _I, _P],
     },
     "triplane_splat_sorted.cu": {
-        # coords, cells, N, H, W, M, scale, stream
-        "tgi_splat_cells_f32": [_P, _P, _I, _I, _I, _L, _F, _P],
-        # g, coords, order, offsets, d_planes, N, H, W, C, M, scale, stream
-        "tgi_splat_segments_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
-                                   _F, _P],
+        # coords, keys, N, H, W, M, scale, stream
+        "tgi_splat_keys_f32": [_P, _P, _I, _I, _I, _L, _F, _P],
+        # sorted_keys, order, coords, offsets, records, N, H, W, M, scale,
+        # stream
+        "tgi_splat_offsets_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F,
+                                  _P],
+        # g, records, offsets, d_planes, N, H, W, C, M, stream
+        "tgi_splat_segments_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     },
     "gather_rows.cu": {
         # exp, cells, out, G, HW, P, row_bytes, stream

@@ -30,8 +30,9 @@ formula folded back through :func:`project_onto_planes` and the
 (``grid_sample.py:262``), takes the plane gradient from a sorted
 segmented reduction instead, bitwise deterministic:
 
-* :func:`triplane_splat_sorted_plain` — plain PyTorch: the same entry
-  cells, ``torch.sort`` and ``torch.searchsorted``, and a segment sum.
+* :func:`triplane_splat_sorted_plain` — plain PyTorch: the same point
+  keys and ``torch.sort``, offsets from an integer count, and segment
+  sums per corner.
 * :func:`triplane_splat_sorted_cuda` — the hand-written CUDA kernels
   ``csrc/triplane_splat_sorted.cu``, which replace the TPU kernel
   ``tgi/ops/pallas/splat_mxu.py::plane_splat_mxu``; ``d_coords`` then
@@ -54,7 +55,8 @@ import torch
 LAUNCHES = 0                 # triplane_gather
 SPLAT_LAUNCHES = 0           # triplane_splat
 SORTED_SPLAT_LAUNCHES = 0    # triplane_splat_sorted's segment kernel
-SPLAT_CELLS_LAUNCHES = 0     # triplane_splat_sorted's cell kernel (prep)
+SPLAT_KEYS_LAUNCHES = 0      # triplane_splat_sorted's key kernel (prep)
+SPLAT_OFFSETS_LAUNCHES = 0   # triplane_splat_sorted's offsets kernel (prep)
 
 
 def _unnormalize(coord, size):
@@ -331,32 +333,84 @@ def _check_sorted_args(coords, g, H, W):
     return N, g.shape[3], M
 
 
-def splat_cells_plain(coords, box_warp, H, W):
-    """Each (plane, point, corner) entry's cell: ``[N*3, 4M]`` int32,
-    entry ``4m + k`` for corner ``k = 2 dy + dx`` of point ``m``, the
-    sentinel ``H*W`` for a corner outside the plane. The corners are the
-    gather's (:func:`_point_indices`)."""
+def _floor_cells(coords, box_warp, H, W):
+    """Each (plane, point)'s floor cell and fractions, flat over
+    ``gp * M + m``: ``(x0f, y0f, wx, wy)`` float32 ``[N*3*M]``, the
+    gather's corners (:func:`_point_indices`)."""
     N, M, _ = coords.shape
     proj = project_onto_planes((2.0 / box_warp) * coords.float())
-    x0, y0, _, _ = _point_indices(proj.reshape(N * 3, M, 2), H, W)
-    cells = []
-    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
-        yy, xx = y0 + dy, x0 + dx
-        ok = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
-        cells.append(torch.where(ok, yy * W + xx, H * W))
-    return torch.stack(cells, dim=-1).reshape(N * 3, 4 * M).int()
+    g = proj.reshape(N * 3 * M, 2)
+    ix = _unnormalize(g[:, 0], W)
+    iy = _unnormalize(g[:, 1], H)
+    x0f = torch.floor(ix)
+    y0f = torch.floor(iy)
+    return x0f, y0f, ix - x0f, iy - y0f
 
 
-def splat_sort(cells, H, W):
-    """The sorted splat's prep after the cells: each plane's entries in
-    cell order (``order``, int64 ``[N*3, 4M]``, stable) and each cell's
-    first entry in that order (``offsets``, int32 ``[N*3, H*W + 1]``)."""
-    cell_s, order = torch.sort(cells, dim=-1, stable=True)
-    bounds = torch.arange(H * W + 1, dtype=torch.int32, device=cells.device)
-    offsets = torch.searchsorted(
-        cell_s, bounds.expand(cells.shape[0], -1).contiguous(),
-        out_int32=True)
-    return order, offsets
+def splat_keys_plain(coords, box_warp, H, W):
+    """Each (plane, point)'s sort key, int32 ``[N*3*M]`` flat over
+    ``gp * M + m`` (``gp = 3 n + plane``): ``gp * K + (y0 + 1) * (W + 1)
+    + x0 + 1`` for its floor cell ``(y0, x0)`` on the ``(H+1) x (W+1)``
+    grid of floor cells from -1, ``K = (H+1)(W+1) + 1``; the plane's
+    sentinel ``gp * K + K - 1`` where the floor cell is off that grid (no
+    corner on the plane)."""
+    N, M, _ = coords.shape
+    x0f, y0f, _, _ = _floor_cells(coords, box_warp, H, W)
+    cells = (H + 1) * (W + 1)
+    on = (x0f >= -1) & (x0f <= W - 1) & (y0f >= -1) & (y0f <= H - 1)
+    local = torch.where(on, (y0f.clamp(-1, H - 1).long() + 1) * (W + 1)
+                        + x0f.clamp(-1, W - 1).long() + 1, cells)
+    gp = torch.arange(N * 3, device=coords.device).repeat_interleave(M)
+    return (gp * (cells + 1) + local).int()
+
+
+def splat_prep_plain(coords, box_warp, H, W):
+    """The sorted splat's prep: ``(order, offsets, records)``.
+
+    ``order`` int64 ``[N*3*M]``: the (plane, point) pairs, flat
+    ``gp * M + m``, sorted by :func:`splat_keys_plain` (one stable
+    ``torch.sort`` of all planes' keys). ``offsets`` int32
+    ``[N*3, (H+1)(W+1) + 1]``: each floor cell's first position in that
+    order and, last, the start of the plane's sentinel run, from an
+    integer count and its running sum. ``records`` int32 ``[N*3*M, 4]``:
+    per sorted position the flat index, the bits of ``wx`` and ``wy``
+    and 0."""
+    N, M, _ = coords.shape
+    keys = splat_keys_plain(coords, box_warp, H, W)
+    order = torch.sort(keys, stable=True)[1]
+    K = (H + 1) * (W + 1) + 1
+    count = torch.bincount(keys.long(), minlength=N * 3 * K)
+    offsets = (torch.cumsum(count, 0) - count).int().reshape(N * 3, K)
+    _, _, wx, wy = _floor_cells(coords, box_warp, H, W)
+    records = torch.stack([order.int(), wx[order].view(torch.int32),
+                           wy[order].view(torch.int32),
+                           torch.zeros_like(order, dtype=torch.int32)], -1)
+    return order, offsets, records
+
+
+def splat_segments_plain(g, records, offsets, H, W):
+    """Plain PyTorch segment sums of the sorted splat: ``d_planes
+    [N, 3, H, W, C]`` from :func:`splat_prep_plain`'s records and
+    offsets. Each floor cell's segment is summed per corner, in sorted
+    order, and output cell ``(y, x)`` adds corner 00 of floor cell
+    ``(y, x)``, 01 of ``(y, x-1)``, 10 of ``(y-1, x)`` and 11 of
+    ``(y-1, x-1)``, in that order."""
+    NP, K = offsets.shape
+    C = g.shape[-1]
+    T = records.shape[0]
+    wx = records[:, 1].view(torch.float32)[:, None]
+    wy = records[:, 2].view(torch.float32)[:, None]
+    w4 = torch.cat([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy,
+                    wx * wy], dim=-1)
+    g_s = g.reshape(-1, C).float()[records[:, 0].long()]
+    lengths = torch.diff(offsets.reshape(-1).long(),
+                         append=torch.full((1,), T, device=g.device))
+    s = torch.segment_reduce((w4[:, :, None] * g_s[:, None]).reshape(
+        T, 4 * C), "sum", lengths=lengths, axis=0, unsafe=True)
+    s = s.reshape(NP, K, 4, C)[:, :-1].reshape(NP, H + 1, W + 1, 4, C)
+    d = (s[:, 1:, 1:, 0] + s[:, 1:, :-1, 1] + s[:, :-1, 1:, 2]
+         + s[:, :-1, :-1, 3])
+    return d.reshape(NP // 3, 3, H, W, C)
 
 
 def triplane_splat_sorted_plain(coords, g, box_warp, H, W):
@@ -366,47 +420,133 @@ def triplane_splat_sorted_plain(coords, g, box_warp, H, W):
 
     coords: ``[N, M, 3]`` world points; g: ``[N, 3, M, C]`` gradient of
     the sampled features. Returns ``d_planes [N, 3, H, W, C]``: the
-    entries of :func:`splat_cells_plain`, sorted by :func:`splat_sort`,
-    their corner weights times ``g`` summed per cell segment in entry
-    order.
+    points sorted by floor cell (:func:`splat_prep_plain`), their corner
+    weights times ``g`` summed per segment (:func:`splat_segments_plain`).
     """
-    N, C, M = _check_sorted_args(coords, g, H, W)
-    G = N * 3
-    order, offsets = splat_sort(splat_cells_plain(coords, box_warp, H, W),
-                                H, W)
-    proj = project_onto_planes((2.0 / box_warp) * coords.float())
-    _, _, wx, wy = _point_indices(proj.reshape(G, M, 2), H, W)
-    w4 = torch.cat([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy,
-                    wx * wy], dim=-1).reshape(G, 4 * M)
-    w_s = torch.gather(w4, 1, order)
-    g_s = torch.gather(g.reshape(G, M, C).float(), 1,
-                       (order // 4)[..., None].expand(-1, -1, C))
-    # Segments: H*W cells, then the sentinel entries, per plane.
-    lengths = torch.cat([offsets.diff(dim=1),
-                         4 * M - offsets[:, -1:]], dim=1)
-    d = torch.segment_reduce((w_s[..., None] * g_s).reshape(G * 4 * M, C),
-                             "sum", lengths=lengths.reshape(-1), axis=0,
-                             unsafe=True)
-    return d.reshape(G, H * W + 1, C)[:, :H * W].reshape(N, 3, H, W, C)
+    _check_sorted_args(coords, g, H, W)
+    _, offsets, records = splat_prep_plain(coords, box_warp, H, W)
+    return splat_segments_plain(g, records, offsets, H, W)
 
 
-def splat_segments_cuda(coords, g, order, offsets, box_warp, H, W):
-    """The sorted splat's segment kernel (``triplane_splat_sorted.cu``)
-    on the prep's ``order`` and ``offsets``: ``d_planes
-    [N, 3, H, W, C]``."""
+def _on_one_card(*tensors):
+    """Raise unless every tensor lies on one CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"tensors on {[str(t.device) for t in tensors]}: "
+                         f"all must be on one CUDA device")
+
+
+def _check_sorted_cuda(coords, H, W):
+    """What the sorted splat's kernels need of ``coords`` (contiguous
+    float32 ``[N, M, 3]`` on a card) and of the shape (int32 keys, flat
+    indices and positions). Returns (N, M)."""
+    if coords.ndim != 3 or coords.shape[2] != 3:
+        raise ValueError(f"coords must be [N, M, 3], got "
+                         f"{tuple(coords.shape)}")
+    _on_one_card(coords)
+    if coords.dtype != torch.float32 or not coords.is_contiguous():
+        raise TypeError(f"coords must be contiguous float32, got "
+                        f"{coords.dtype}")
+    N, M, _ = coords.shape
+    if (N * 3 > 65535 or 3 * N * M >= 2 ** 31
+            or 3 * N * ((H + 1) * (W + 1) + 1) >= 2 ** 31):
+        raise ValueError(f"shape out of the kernels' range: N={N}, M={M}, "
+                         f"{H}x{W}")
+    return N, M
+
+
+def splat_keys_cuda(coords, box_warp, H, W):
+    """:func:`splat_keys_plain` through the key kernel
+    (``triplane_splat_sorted.cu``)."""
+    global SPLAT_KEYS_LAUNCHES
+    from tgi_torch.ops import _native
+    N, M = _check_sorted_cuda(coords, H, W)
+    keys = torch.empty(N * 3 * M, dtype=torch.int32, device=coords.device)
+    lib = _native.library("triplane_splat_sorted.cu")
+    err = lib.tgi_splat_keys_f32(
+        ctypes.c_void_p(coords.data_ptr()), ctypes.c_void_p(keys.data_ptr()),
+        N, H, W, M, ctypes.c_float(2.0 / box_warp),
+        ctypes.c_void_p(torch.cuda.current_stream(coords.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"splat_keys launch failed: "
+                           f"{_native.error_string(err)} ({err})")
+    SPLAT_KEYS_LAUNCHES += 1
+    return keys
+
+
+def splat_offsets_cuda(coords, keys_sorted, order, box_warp, H, W):
+    """The offsets-and-records kernel (``triplane_splat_sorted.cu``) on
+    the sorted keys and their ``order``: :func:`splat_prep_plain`'s
+    ``(offsets, records)``."""
+    global SPLAT_OFFSETS_LAUNCHES
+    from tgi_torch.ops import _native
+    T = 3 * coords.shape[0] * coords.shape[1]
+    if (tuple(keys_sorted.shape) != (T,) or order.shape != keys_sorted.shape
+            or keys_sorted.dtype != torch.int32
+            or order.dtype != torch.int64):
+        raise ValueError(f"keys_sorted must be int32 and order int64, both "
+                         f"[{T}]; got {keys_sorted.dtype} "
+                         f"{tuple(keys_sorted.shape)} and {order.dtype} "
+                         f"{tuple(order.shape)}")
+    _on_one_card(coords, keys_sorted, order)
+    N, M = _check_sorted_cuda(coords, H, W)
+    dev = coords.device
+    offsets = torch.empty((N * 3, (H + 1) * (W + 1) + 1), dtype=torch.int32,
+                          device=dev)
+    records = torch.empty((T, 4), dtype=torch.int32, device=dev)
+    lib = _native.library("triplane_splat_sorted.cu")
+    err = lib.tgi_splat_offsets_f32(
+        ctypes.c_void_p(keys_sorted.data_ptr()),
+        ctypes.c_void_p(order.data_ptr()), ctypes.c_void_p(coords.data_ptr()),
+        ctypes.c_void_p(offsets.data_ptr()),
+        ctypes.c_void_p(records.data_ptr()), N, H, W, M,
+        ctypes.c_float(2.0 / box_warp),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"splat_offsets launch failed: "
+                           f"{_native.error_string(err)} ({err})")
+    SPLAT_OFFSETS_LAUNCHES += 1
+    return offsets, records
+
+
+def splat_prep_cuda(coords, box_warp, H, W):
+    """:func:`splat_prep_plain` on the card: the key kernel, one stable
+    ``torch.sort`` of all planes' keys, then the offsets-and-records
+    kernel."""
+    keys_sorted, order = torch.sort(splat_keys_cuda(coords, box_warp, H, W),
+                                    stable=True)
+    return (order, *splat_offsets_cuda(coords, keys_sorted, order, box_warp,
+                                       H, W))
+
+
+def splat_segments_cuda(g, records, offsets, H, W):
+    """:func:`splat_segments_plain` through the segment kernel
+    (``triplane_splat_sorted.cu``): ``d_planes [N, 3, H, W, C]``."""
     global SORTED_SPLAT_LAUNCHES
     from tgi_torch.ops import _native
-    N, C, M = _check_sorted_args(coords, g, H, W)
+    if g.ndim != 4 or g.shape[1] != 3:
+        raise ValueError(f"g must be [N, 3, M, C], got {tuple(g.shape)}")
+    N, _, M, C = g.shape
+    K = (H + 1) * (W + 1) + 1
+    if (tuple(records.shape) != (N * 3 * M, 4)
+            or tuple(offsets.shape) != (N * 3, K)
+            or records.dtype != torch.int32 or offsets.dtype != torch.int32
+            or not (records.is_contiguous() and offsets.is_contiguous())):
+        raise ValueError(f"records must be int32 [{N * 3 * M}, 4] and "
+                         f"offsets int32 [{N * 3}, {K}], contiguous; got "
+                         f"{tuple(records.shape)} and "
+                         f"{tuple(offsets.shape)}")
+    _on_one_card(g, records, offsets)
+    if g.dtype != torch.float32:
+        raise TypeError(f"float32 only, got {g.dtype}")
     d_planes = torch.empty((N, 3, H, W, C), dtype=torch.float32,
                            device=g.device)
     g = g.contiguous()
     lib = _native.library("triplane_splat_sorted.cu")
     err = lib.tgi_splat_segments_f32(
-        ctypes.c_void_p(g.data_ptr()), ctypes.c_void_p(coords.data_ptr()),
-        ctypes.c_void_p(order.data_ptr()),
+        ctypes.c_void_p(g.data_ptr()), ctypes.c_void_p(records.data_ptr()),
         ctypes.c_void_p(offsets.data_ptr()),
         ctypes.c_void_p(d_planes.data_ptr()), N, H, W, C, M,
-        ctypes.c_float(2.0 / box_warp),
         ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"splat_segments launch failed: "
@@ -415,45 +555,15 @@ def splat_segments_cuda(coords, g, order, offsets, box_warp, H, W):
     return d_planes
 
 
-def splat_prep_cuda(coords, box_warp, H, W):
-    """The sorted splat's prep on the card: the cell kernel
-    (``triplane_splat_sorted.cu``), then :func:`splat_sort`."""
-    global SPLAT_CELLS_LAUNCHES
-    from tgi_torch.ops import _native
-    N, M, _ = coords.shape
-    cells = torch.empty((N * 3, 4 * M), dtype=torch.int32,
-                        device=coords.device)
-    lib = _native.library("triplane_splat_sorted.cu")
-    err = lib.tgi_splat_cells_f32(
-        ctypes.c_void_p(coords.data_ptr()), ctypes.c_void_p(cells.data_ptr()),
-        N, H, W, M, ctypes.c_float(2.0 / box_warp),
-        ctypes.c_void_p(torch.cuda.current_stream(coords.device).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"splat_cells launch failed: "
-                           f"{_native.error_string(err)} ({err})")
-    SPLAT_CELLS_LAUNCHES += 1
-    return splat_sort(cells, H, W)
-
-
 def triplane_splat_sorted_cuda(coords, g, box_warp, H, W):
     """:func:`triplane_splat_sorted_plain` through the CUDA kernels: no
     atomics, so ``d_planes`` is the same bits from run to run.
 
     coords (contiguous) and g float32 on one CUDA device."""
-    dev = g.device
-    if dev.type != "cuda" or coords.device != dev:
-        raise ValueError(f"coords on {coords.device}, g on {dev}: both must "
-                         f"be on one CUDA device")
-    if coords.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError(f"float32 only, got {coords.dtype}, {g.dtype}")
-    N, C, M = _check_sorted_args(coords, g, H, W)
-    if not coords.is_contiguous():
-        raise ValueError("coords must be contiguous")
-    if N * 3 > 65535 or 4 * M >= 2 ** 31 or H * W >= 2 ** 31 - 1:
-        raise ValueError(f"shape out of the kernel's range: N={N}, M={M}, "
-                         f"{H}x{W}")
-    order, offsets = splat_prep_cuda(coords, box_warp, H, W)
-    return splat_segments_cuda(coords, g, order, offsets, box_warp, H, W)
+    _check_sorted_args(coords, g, H, W)
+    _on_one_card(coords, g)
+    _, offsets, records = splat_prep_cuda(coords, box_warp, H, W)
+    return splat_segments_cuda(g, records, offsets, H, W)
 
 
 class TriplaneSample(torch.autograd.Function):

@@ -20,8 +20,9 @@ the entries that the schedule adds. Per 512-entry block:
 Rows outside ``[0, H*W)`` are dropped. :func:`splat_sched` takes the
 plain version (the schedule's mask, then ``index_add_``) for a CPU
 tensor and launches ``csrc/splat_sched.cu`` for a CUDA tensor, or
-raises. The kernel adds with atomics, so its last bits change from run
-to run.
+raises. The kernel sums a warp's entries of one row in registers and
+adds them with one float4 atomic per lane, so its last bits change from
+run to run.
 """
 
 from __future__ import annotations
@@ -97,11 +98,14 @@ def splat_sched_cuda(rows: torch.Tensor, wg: torch.Tensor, H: int, W: int,
     from tgi_torch.ops import _native
 
     _check(rows, wg, H, W, schedule)
+    if not (rows.is_contiguous() and wg.is_contiguous()):
+        raise ValueError("rows and wg must be contiguous")
+    if wg.data_ptr() % 8:
+        raise ValueError("wg must start on an 8-byte boundary: each lane "
+                         "loads four bf16 at once")
     dev = wg.device
     if dev.type != "cuda":
         raise ValueError(f"wg on {dev}: the kernel needs a CUDA tensor")
-    if not (rows.is_contiguous() and wg.is_contiguous()):
-        raise ValueError("rows and wg must be contiguous")
     G, E = rows.shape
     if G > 65535 or E == 0:
         raise ValueError(f"shape out of the kernel's range: G={G}, E={E}")

@@ -1,14 +1,20 @@
-"""The tri-plane gather and splat kernels timed beside other versions of
-their sources, on the main path's own inputs, on a CUDA card.
+"""The tri-plane gather and splat kernels, the sorted splat and the
+scheduled splat timed beside other versions of their sources, on the
+main path's own inputs, on a CUDA card.
 
     python -m tgi_torch.scripts.triplane_variants [--variants DIR ...]
         [--out FILE.json]
 
-Each ``DIR`` holds a ``triplane_gather.cu`` and/or a
-``triplane_splat.cu`` with the committed files' C entry points: an
-earlier commit's file, or a copy edited to try one change. The
-directory's name is the variant's name. Every variant is built with the
-package's ``nvcc`` flags into ``tgi_torch/_build/variants/``.
+Each ``DIR`` holds some of ``triplane_gather.cu``, ``triplane_splat.cu``,
+``triplane_splat_sorted.cu`` and ``splat_sched.cu`` with the committed
+files' C entry points: an earlier commit's file, or a copy edited to
+try one change. The directory's name is the variant's name. Every
+variant is built with the package's ``nvcc`` flags into
+``tgi_torch/_build/variants/``. A ``triplane_splat_sorted.cu`` of the
+earlier design (a cell kernel ``tgi_splat_cells_f32`` with one entry per
+point and corner, ``torch.sort`` per plane and ``torch.searchsorted``,
+then a segment kernel that reads the coords) runs behind an adapter
+here (:func:`earlier_sorted_fns`).
 
 The script renders with the full-width generator
 (``GeneratorConfig(neural_rendering_resolution=128)``, weights drawn from
@@ -21,13 +27,17 @@ splat bench's points (``bench_splat_sched.make_inputs``: a 64² x 48
 frustum march clipped to the box, M = 196,608, whose clipped points
 pile into the border cells) on the first render's coarse planes, each
 with a feature gradient drawn from seed 1. On them it checks every version against the plain
-one (the gather to 1e-5 abs, the splat to 1e-5 of the largest value) and
-times it (CUDA-event medians, ``scripts.median_ms``) beside the
+one (the gather to 1e-5 abs, the splats to 1e-5 of the largest value)
+and times it (CUDA-event medians, ``scripts.median_ms``) beside the
 committed kernels, their scalar path (the same library, given planes, g
 and out one float past a 16-byte boundary), the library call
 (``F.grid_sample``, ``grid_sampler_2d_backward``) and the byte bound at
-an H100 SXM's 3.35 TB/s. The versions run in turns, in order and then in
-reverse, and each time is the mean of the two medians.
+an H100 SXM's 3.35 TB/s; the sorted splat whole, its prep and its
+segment kernel apart. The scheduled splat runs on the splat bench's
+entries at both of ``chip_smoke.py``'s point counts (a 128² and a 64² x
+48 frustum march on 256² planes), each schedule beside ``index_add_``.
+The versions run in turns, in order and then in reverse, and each time
+is the mean of the two medians.
 """
 
 from __future__ import annotations
@@ -45,7 +55,18 @@ from tgi_torch.ops import _native
 from tgi_torch.ops import grid_sample as gs
 from tgi_torch.scripts import median_ms
 
-SOURCES = ("triplane_gather.cu", "triplane_splat.cu")
+SOURCES = ("triplane_gather.cu", "triplane_splat.cu",
+           "triplane_splat_sorted.cu", "splat_sched.cu")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
+# The earlier sorted splat's C entry points.
+EARLIER_SORTED = {
+    # coords, cells, N, H, W, M, scale, stream
+    "tgi_splat_cells_f32": [_P, _P, _I, _I, _I, _L, _F, _P],
+    # g, coords, order, offsets, d_planes, N, H, W, C, M, scale, stream
+    "tgi_splat_segments_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _F,
+                               _P],
+}
 TOL = 1e-5
 BW = 3.35e12  # an H100 SXM's device-memory rate, bytes/s
 
@@ -73,8 +94,14 @@ def build_variants(dirs):
         if proc.returncode != 0:
             raise SystemExit(f"{name}/{src}: nvcc exited {proc.returncode}"
                              f"\n{out}")
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}/{src}: {line.strip()}", flush=True)
         lib = ctypes.CDLL(so)
-        for fn, argtypes in _native.ENTRY_POINTS[src].items():
+        entry_points = _native.ENTRY_POINTS[src]
+        if hasattr(lib, "tgi_splat_cells_f32"):
+            entry_points = EARLIER_SORTED
+        for fn, argtypes in entry_points.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[src, name] = lib
@@ -151,6 +178,148 @@ def splat_run(lib, planes_cl, coords, g, d_planes, d_coords, scale):
         if err:
             raise RuntimeError(f"splat launch failed ({err})")
     return run
+
+
+def sorted_fns(lib, coords, g, scale, H, W):
+    """{"whole", "prep", "segments": fn} of a sorted splat source with
+    the committed entry points (keys, one stable sort, offsets and
+    records, segments), and the d_planes that "whole" and "segments"
+    write."""
+    N, M, _ = coords.shape
+    C = g.shape[3]
+    dev = coords.device
+    stream = torch.cuda.current_stream().cuda_stream
+    keys = torch.empty(N * 3 * M, dtype=torch.int32, device=dev)
+    offsets = torch.empty((N * 3, (H + 1) * (W + 1) + 1), dtype=torch.int32,
+                          device=dev)
+    records = torch.empty((N * 3 * M, 4), dtype=torch.int32, device=dev)
+    d_planes = torch.full((N, 3, H, W, C), math.nan, device=dev)
+
+    def prep():
+        if lib.tgi_splat_keys_f32(coords.data_ptr(), keys.data_ptr(), N, H,
+                                  W, M, scale, stream):
+            raise RuntimeError("keys launch failed")
+        keys_s, order = torch.sort(keys, stable=True)
+        if lib.tgi_splat_offsets_f32(
+                keys_s.data_ptr(), order.data_ptr(), coords.data_ptr(),
+                offsets.data_ptr(), records.data_ptr(), N, H, W, M, scale,
+                stream):
+            raise RuntimeError("offsets launch failed")
+
+    def segments():
+        if lib.tgi_splat_segments_f32(g.data_ptr(), records.data_ptr(),
+                                      offsets.data_ptr(), d_planes.data_ptr(),
+                                      N, H, W, C, M, stream):
+            raise RuntimeError("segments launch failed")
+
+    def whole():
+        prep()
+        segments()
+    return {"whole": whole, "prep": prep, "segments": segments}, d_planes
+
+
+def earlier_sorted_fns(lib, coords, g, scale, H, W):
+    """:func:`sorted_fns` for the earlier design: one int32 cell per
+    (plane, point, corner), ``torch.sort`` of each plane's entries,
+    ``torch.searchsorted`` for the offsets, a segment kernel that walks
+    each cell's entries and re-reads their coords."""
+    N, M, _ = coords.shape
+    C = g.shape[3]
+    dev = coords.device
+    stream = torch.cuda.current_stream().cuda_stream
+    cells = torch.empty((N * 3, 4 * M), dtype=torch.int32, device=dev)
+    bounds = torch.arange(H * W + 1, dtype=torch.int32, device=dev).expand(
+        N * 3, -1).contiguous()
+    d_planes = torch.full((N, 3, H, W, C), math.nan, device=dev)
+    sorted_ = {}
+
+    def prep():
+        if lib.tgi_splat_cells_f32(coords.data_ptr(), cells.data_ptr(), N, H,
+                                   W, M, scale, stream):
+            raise RuntimeError("cells launch failed")
+        cell_s, sorted_["order"] = torch.sort(cells, dim=-1, stable=True)
+        sorted_["offsets"] = torch.searchsorted(cell_s, bounds,
+                                                out_int32=True)
+
+    def segments():
+        if lib.tgi_splat_segments_f32(
+                g.data_ptr(), coords.data_ptr(), sorted_["order"].data_ptr(),
+                sorted_["offsets"].data_ptr(), d_planes.data_ptr(), N, H, W,
+                C, M, scale, stream):
+            raise RuntimeError("segments launch failed")
+
+    def whole():
+        prep()
+        segments()
+    return {"whole": whole, "prep": prep, "segments": segments}, d_planes
+
+
+def time_sorted(libs, coords, g, bwarp, H, W, library, row):
+    """The sorted splat's versions on one pass: {"whole" | "prep" |
+    "segments": {version: ms}}; errors into ``row["err"]``."""
+    scale = 2.0 / bwarp
+    want = gs.triplane_splat_sorted_plain(coords, g, bwarp, H, W)
+    versions = {"committed": (_native.library("triplane_splat_sorted.cu"),
+                              g),
+                "committed, scalar path": (
+                    _native.library("triplane_splat_sorted.cu"),
+                    off_by_one_float(g))}
+    versions.update({name: (lib, g) for (src, name), lib in libs.items()
+                     if src == "triplane_splat_sorted.cu"})
+    out = {"whole": {"grid_sampler_2d_backward": library}, "prep": {},
+           "segments": {}}
+    for name, (lib, gg) in versions.items():
+        make = (earlier_sorted_fns if hasattr(lib, "tgi_splat_cells_f32")
+                else sorted_fns)
+        fns, d_planes = make(lib, coords, gg, scale, H, W)
+        fns["whole"]()
+        again = d_planes.clone()
+        fns["whole"]()
+        err = row["err"][f"sorted {name}"] = rel_err(d_planes, want)
+        if not (err <= TOL and torch.equal(d_planes, again)):
+            raise SystemExit(f"sorted {name!r} disagrees with plain by {err} "
+                             f"of its largest value, or with itself")
+        for part, fn in fns.items():
+            out[part][name] = fn
+    return {part: in_turns(fns) for part, fns in out.items()}
+
+
+def time_sched(libs, gen_inputs):
+    """The scheduled splat's versions on the splat bench's entries at
+    both point counts: {case: {version: ms}}, the bounds and errors."""
+    from tgi_torch.ops import splat_sched as ss
+    from tgi_torch.scripts import bench_splat_sched as bench
+    versions = {"committed": _native.library("splat_sched.cu")}
+    versions.update({name: lib for (src, name), lib in libs.items()
+                     if src == "splat_sched.cu"})
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {"ms": {}, "bound_ms": {}, "err": {}}
+    for Ry, Rx, S in ((128, 128, 48), (64, 64, 48)):
+        t = gen_inputs(Ry, Rx, S)
+        rows, wg, R = t["rows"], t["wg"], t["H"]
+        G, P = rows.shape
+        for schedule in ss.SCHEDULES:
+            case = f"{schedule} P={P}"
+            want = ss.splat_sched_plain(rows, wg, R, R, schedule)
+            kept = ss.schedule_mask(rows, R, R, schedule).sum().item()
+            nbytes = 2 * 128 * kept + 4 * G * P + 4 * 128 * G * R * R
+            res["bound_ms"][case] = nbytes / BW * 1e3
+            fns = {"index_add_": lambda t=t: bench.index_add(t)}
+            for name, lib in versions.items():
+                def run(lib=lib, schedule=schedule):
+                    acc = torch.zeros((G, R * R, 128), device=rows.device)
+                    if lib.tgi_splat_sched(
+                            wg.data_ptr(), rows.data_ptr(), acc.data_ptr(), G,
+                            P, R, R, ss.SCHEDULES.index(schedule), stream):
+                        raise RuntimeError("splat_sched launch failed")
+                    return acc
+                err = res["err"][f"{case} {name}"] = rel_err(run(), want)
+                if not err <= TOL:
+                    raise SystemExit(f"splat_sched {name!r} {case} disagrees "
+                                     f"with plain by {err}")
+                fns[name] = run
+            res["ms"][case] = in_turns(fns)
+    return res
 
 
 def in_turns(fns):
@@ -231,14 +400,21 @@ def time_pass(libs, planes, coords, bwarp, gen):
                 raise SystemExit(f"{key} {name!r} disagrees with plain by "
                                  f"{err} of its largest value")
         row[key] = in_turns(fns)
+    for part, ms in time_sorted(
+            libs, coords, g, bwarp, H, W,
+            lambda: torch.ops.aten.grid_sampler_2d_backward(
+                g_lib, nchw, grid, 0, 0, False, [True, False]), row).items():
+        row[f"sorted {part}"] = ms
+        row["bound_ms"][f"sorted {part}"] = row["bound_ms"]["splat"]
     return row
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", nargs="*", default=[],
-                    help="directories of other triplane_gather.cu / "
-                    "triplane_splat.cu sources")
+                    help="directories of other versions of the sources "
+                    "(triplane_gather.cu, triplane_splat.cu, "
+                    "triplane_splat_sorted.cu, splat_sched.cu)")
     ap.add_argument("--out", help="write the results as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -264,18 +440,32 @@ def main(argv=None):
     for pname, (planes, coords, bwarp) in passes.items():
         row = results["passes"][pname] = time_pass(libs, planes, coords,
                                                    bwarp, gen)
-        for key in ("gather", "splat", "splat_d_coords"):
+        for key in ("gather", "splat", "splat_d_coords", "sorted whole",
+                    "sorted prep", "sorted segments"):
             lib_name = ("F.grid_sample" if key == "gather"
                         else "grid_sampler_2d_backward")
+            lib_ms = (row[key].get(lib_name)
+                      or row["sorted whole"]["grid_sampler_2d_backward"])
             bound = row["bound_ms"][key]
             print(f"{pname} pass, {key} (M={coords.shape[1]}, bound "
                   f"{bound:.4f} ms):", flush=True)
             for k, ms in row[key].items():
-                print(f"  {ms:8.4f} ms  x{ms / row[key][lib_name]:5.2f} of "
+                print(f"  {ms:8.4f} ms  x{ms / lib_ms:5.2f} of "
                       f"{lib_name}  {100 * bound / ms:5.1f} % of bound  {k}",
                       flush=True)
         print(f"{pname} pass, max errors against plain: "
               f"{max(row['err'].values()):.3g}", flush=True)
+    sched = results["splat_sched"] = time_sched(
+        libs, lambda Ry, Rx, S: bench.make_inputs("cuda", Ry, Rx, S, 256))
+    for case, ms in sched["ms"].items():
+        bound = sched["bound_ms"][case]
+        print(f"splat_sched {case} (bound {bound:.4f} ms):", flush=True)
+        for k, v in ms.items():
+            print(f"  {v:8.4f} ms  x{v / ms['index_add_']:5.2f} of "
+                  f"index_add_  {100 * bound / v:5.1f} % of bound  {k}",
+                  flush=True)
+    print(f"splat_sched, max errors against plain: "
+          f"{max(sched['err'].values()):.3g}", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
