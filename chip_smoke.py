@@ -1509,9 +1509,13 @@ def phase_row_fetch_vs_plain(torch, inputs):
 def phase_tilewalk_vs_plain(torch, inputs):
     """b. gather_tilewalk.cu bitwise against its plain version, bf16 and
     fp32, block-local and ray-major order, at both bench point counts
-    (786,432 and 196,608) and at a ragged P = 1037 on a 32² plane with
-    rows of 128 and 64; its passes per block equal to the plain count.
-    Returns (max abs err, mean passes per block by order and P)."""
+    (786,432 and 196,608) and at a ragged P = 1037: on a 32² plane with
+    rows of 128 and 64, there with the first cell of two blocks out of
+    range, on a 16² plane (one window) and on a 512² plane (1,024
+    windows, cells drawn uniformly, so a block names hundreds of them,
+    and again the first cell of two blocks out of range); its passes
+    per block equal to the plain count. Returns (max abs err, mean
+    passes per block by order and P)."""
     from tgi_torch.ops import gather_rows as gr
     cases = []
     for P in bench_point_counts():
@@ -1523,11 +1527,25 @@ def phase_tilewalk_vs_plain(torch, inputs):
                               exp, t[key]))
     gen = torch.Generator().manual_seed(22)
     cells = _local_cells(torch, gen, 32, 32, 1037).to(DEVICE)
-    for L in (128, 64):
-        exp = torch.randn(3, 1024, L, generator=gen)
+    first_out = cells.clone()
+    first_out[:, 0] = -1
+    first_out[:, 512] = 1024
+    one = _local_cells(torch, gen, 16, 16, 1037).to(DEVICE)
+    wide = torch.randint(0, 512 * 512, (3, 1037), generator=gen).int()
+    wide[:, 0] = 512 * 512
+    wide[:, 512] = -1
+    wide = wide.to(DEVICE)
+    small = [(f"P=1037 L={L}", 1024, L, cells) for L in (128, 64)]
+    small += [("P=1037 L=128, first cells out of range", 1024, 128,
+               first_out),
+              ("P=1037 L=128, one window (16x16)", 256, 128, one),
+              ("P=1037 L=64, 1,024 windows (512x512), first cells out of "
+               "range", 512 * 512, 64, wide)]
+    for name, HW, L, c in small:
+        exp = torch.randn(3, HW, L, generator=gen)
         for dt in (torch.bfloat16, torch.float32):
-            cases.append((f"{str(dt)[6:]} P=1037 L={L}", None,
-                          exp.to(DEVICE, dt), cells))
+            cases.append((f"{str(dt)[6:]} {name}", None, exp.to(DEVICE, dt),
+                          c))
     worst, passes = 0.0, {}
     for name, order, exp, cells in cases:
         got, n = gr.gather_rows_tilewalk_cuda(exp, cells, return_passes=True)

@@ -60,6 +60,17 @@ def test_importing_a_bench_runs_nothing(capsys):
     assert capsys.readouterr().out == ""
 
 
+def test_importing_the_variants_script_runs_nothing(capsys):
+    from tgi_torch.scripts import triplane_variants as tv
+    importlib.reload(tv)
+    assert capsys.readouterr().out == ""
+    assert "gather_tilewalk.cu" in tv.SOURCES
+    assert [math.prod(layout) for layout in tv.TILEWALK_LAYOUTS] == [
+        786_432, 196_608]
+    with pytest.raises(SystemExit, match="CUDA"):
+        tv.main([])
+
+
 @pytest.mark.parametrize("Ry,Rx,S,H", [(8, 8, 4, 32), (16, 8, 6, 64)])
 def test_gather_bench_inputs_match_the_tpu_script(Ry, Rx, S, H):
     P = Ry * Rx * S

@@ -7,8 +7,12 @@ tgi's Pallas kernels run in interpret mode: ``gather_rows_vmem`` (fp32,
 rows of 128 and 64), ``gather_rows_vmem_bf16`` and ``gather_rows_mxu``
 (bf16 and fp32, block-local and random point order). The walk's pass
 count per 512-point block is held against a step-by-step replay of the
-TPU kernel's walk. Point counts are ragged for the 512-point blocks.
+TPU kernel's walk, also on a one-window plane, a 1,024-window plane and
+blocks whose first cell is out of range. Point counts are ragged for the
+512-point blocks.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from tgi.ops import grid_sample as jgs
 from tgi.ops.pallas import gather_vmem
+from tgi_torch.ops import _native
 from tgi_torch.ops import gather_rows as gr
 from tgi_torch.ops import pack
 
@@ -104,12 +109,14 @@ def test_tilewalk_matches_gather_rows_mxu(dtype, order):
 
 
 def _tpu_walk_passes(rows, nrows, block=512, window=256):
-    """Replay of gather_rows_mxu's while loop, per block: the passes."""
+    """Replay of gather_rows_mxu's while loop, per block: the passes. The
+    walk is taken over the block's rows in [0, nrows) (on any other row
+    the TPU kernel never finishes), from the first of them."""
     out = []
     for b in range(0, len(rows), block):
-        r = list(rows[b:b + block])
+        r = [x for x in rows[b:b + block] if 0 <= x < nrows]
         undone = set(r)
-        base = min(r[0] // window * window, nrows - window)
+        base = min(r[0] // window * window, nrows - window) if r else 0
         n = 0
         while undone:
             undone -= {x for x in undone if base <= x < base + window}
@@ -132,6 +139,74 @@ def test_tilewalk_passes_replay_the_tpu_walk():
     # Locality is what the walk pays for: the random order takes more.
     assert (gr.tilewalk_passes_plain(cells_t, H * W).float().mean()
             < gr.tilewalk_passes_plain(rand, H * W).float().mean())
+
+
+@pytest.mark.parametrize("case", ["one window", "1024 windows",
+                                  "first cells out of range"])
+def test_tilewalk_passes_replay_the_tpu_walk_at_edge_shapes(case):
+    """A 16x16 plane (one window), a 512x512 plane (1,024 windows; cells
+    drawn uniformly, so a block names hundreds, and by walks), and
+    blocks whose first cell lies below or above the plane."""
+    rng = np.random.RandomState(14)
+    if case == "one window":
+        H = W = 16
+        cells = np.concatenate([_local_cells(15, H, W, 1037).numpy(),
+                                rng.randint(-2, H * W + 2, (G, 1037))], 1)
+    elif case == "1024 windows":
+        H = W = 512
+        cells = np.concatenate([rng.randint(0, H * W, (G, 1100)),
+                                _local_cells(16, H, W, 900).numpy()], 1)
+    else:
+        H = W = 32
+        cells = _local_cells(17, H, W, 1600).numpy()
+        cells[:, ::512] = -1
+        cells[1, 512] = H * W
+    cells = torch.from_numpy(cells.astype(np.int32))
+    got = gr.tilewalk_passes_plain(cells, H * W)
+    want = [_tpu_walk_passes(c.tolist(), H * W) for c in cells]
+    assert got.tolist() == want
+    top = {"one window": 1, "1024 windows": 512,
+           "first cells out of range": 4}[case]
+    assert 1 <= got.max() <= top
+    if case == "1024 windows":
+        assert got.max() > 256   # more windows than a 256² plane has
+
+
+def test_tilewalk_matches_gather_rows_mxu_on_one_window():
+    """A 16x16 plane is one 256-row window: the TPU walk's one pass."""
+    exp_t = _plane(19, 256, 128)
+    cells_t = _local_cells(20, 16, 16, 700)
+    want = _interpret(gather_vmem.gather_rows_mxu, jnp.asarray(exp_t.numpy()),
+                      jnp.asarray(cells_t.numpy()))
+    got, passes = gr.gather_rows_tilewalk(exp_t, cells_t, return_passes=True)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert passes.tolist() == [[1, 1]] * G
+
+
+def test_tilewalk_wrapper_takes_rows_of_any_width(monkeypatch):
+    """The kernel stages no window in shared memory, so the wrapper hands
+    rows whose 256-row window is 1 MB (fp32 rows of 1024) to the C entry
+    point, with their width in bytes."""
+    calls = []
+
+    class Lib:
+        def tgi_gather_tilewalk(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(gr, "_cuda_args", lambda exp, cells: (
+        exp.shape[0], exp.shape[1], cells.shape[1],
+        exp.shape[2] * exp.element_size()))
+    monkeypatch.setattr(_native, "library", lambda src: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None:
+                        types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(gr, "TILEWALK_LAUNCHES", 0)
+    exp = torch.zeros(G, 256, 1024)
+    out, passes = gr.gather_rows_tilewalk_cuda(
+        exp, torch.zeros(G, 600, dtype=torch.int32), return_passes=True)
+    assert out.shape == (G, 600, 1024) and passes.shape == (G, 2)
+    assert calls[0][4:8] == (G, 256, 600, 4096)
+    assert gr.TILEWALK_LAUNCHES == 1
 
 
 def test_out_of_range_cells_give_zero_rows():

@@ -10,12 +10,13 @@ or bf16 and int32 ``cells [G, P]``, in two forms:
   ``csrc/triplane_gather.cu``) and ``gather_rows_vmem_bf16``
   (``gather_vmem.py:98``). Kernel: ``csrc/gather_rows.cu``.
 * :func:`gather_rows_tilewalk` — the same fetch from a plane whose rows
-  are numbered in 16x16 cell tiles (``pack.tiled_cell``), walking the
-  256-row windows each 512-point block touches. Replaces
-  ``gather_rows_mxu`` (``gather_vmem.py:160``). Kernel:
-  ``csrc/gather_tilewalk.cu``. The result does not depend on the point
-  order; the order sets the number of passes per block, which
-  ``return_passes`` reports.
+  are numbered in 16x16 cell tiles (``pack.tiled_cell``), and the
+  number of 256-row windows the TPU kernel's walk visits per 512-point
+  block. Replaces ``gather_rows_mxu`` (``gather_vmem.py:160``). Kernel:
+  ``csrc/gather_tilewalk.cu``, which reads only the rows a block
+  touches. The result does not depend on the point order; the order
+  sets the number of passes per block, which ``return_passes``
+  reports.
 
 A cell outside ``[0, HW)`` gives a zero row (the TPU kernels leave it
 undefined). Each wrapper takes its plain version (advanced indexing) for
@@ -133,9 +134,6 @@ def gather_rows_tilewalk_cuda(exp_tiled: torch.Tensor,
     _check(exp_tiled, cells_tiled)
     _check_tiled(exp_tiled)
     G, HW, P, row_bytes = _cuda_args(exp_tiled, cells_tiled)
-    if WINDOW * row_bytes > 220 * 1024:
-        raise ValueError(f"a 256-row window of {row_bytes}-byte rows does "
-                         f"not fit in shared memory")
     dev = exp_tiled.device
     out = torch.empty((G, P, exp_tiled.shape[2]), dtype=exp_tiled.dtype,
                       device=dev)

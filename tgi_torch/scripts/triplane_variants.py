@@ -1,44 +1,51 @@
-"""The tri-plane gather and splat kernels, the sorted splat and the
-scheduled splat timed beside other versions of their sources, on the
-main path's own inputs, on a CUDA card.
+"""The tri-plane gather and splat kernels, the sorted splat, the
+scheduled splat and the tile walk timed beside other versions of their
+sources, on the main path's own inputs, on a CUDA card.
 
     python -m tgi_torch.scripts.triplane_variants [--variants DIR ...]
         [--out FILE.json]
 
-Each ``DIR`` holds some of ``triplane_gather.cu``, ``triplane_splat.cu``,
-``triplane_splat_sorted.cu`` and ``splat_sched.cu`` with the committed
-files' C entry points: an earlier commit's file, or a copy edited to
-try one change. The directory's name is the variant's name. Every
-variant is built with the package's ``nvcc`` flags into
-``tgi_torch/_build/variants/``. A ``triplane_splat_sorted.cu`` of the
-earlier design (a cell kernel ``tgi_splat_cells_f32`` with one entry per
-point and corner, ``torch.sort`` per plane and ``torch.searchsorted``,
-then a segment kernel that reads the coords) runs behind an adapter
-here (:func:`earlier_sorted_fns`).
+Each ``DIR`` holds some of ``triplane_gather.cu``,
+``triplane_splat.cu``, ``triplane_splat_sorted.cu``, ``splat_sched.cu``
+and ``gather_tilewalk.cu`` with the committed files' C entry points: an
+earlier commit's file, or a copy edited to try one change. The
+directory's name is the variant's name. Every variant is built with the
+package's ``nvcc`` flags into ``tgi_torch/_build/variants/``. A
+``triplane_splat_sorted.cu`` of the earlier design (a cell kernel
+``tgi_splat_cells_f32`` with one entry per point and corner,
+``torch.sort`` per plane and ``torch.searchsorted``, then a segment
+kernel that reads the coords) runs behind an adapter here
+(:func:`earlier_sorted_fns`).
 
 The script renders with the full-width generator
-(``GeneratorConfig(neural_rendering_resolution=128)``, weights drawn from
-seed 0) from two cameras: ``chip_smoke.py``'s, at yaw +0.35, where a
-ray's consecutive samples rarely share a cell on any plane, and a
-frontal one, where they mostly do on the plane that faces the camera.
-It keeps the planes and points of each render's two sampling passes,
-coarse and fine (N = 1, 3 x 32 x 256², M = 786,432), and adds the
-splat bench's points (``bench_splat_sched.make_inputs``: a 64² x 48
-frustum march clipped to the box, M = 196,608, whose clipped points
-pile into the border cells) on the first render's coarse planes, each
-with a feature gradient drawn from seed 1. On them it checks every version against the plain
-one (the gather to 1e-5 abs, the splats to 1e-5 of the largest value)
-and times it (CUDA-event medians, ``scripts.median_ms``) beside the
-committed kernels, their scalar path (the same library, given planes, g
-and out one float past a 16-byte boundary), the library call
+(``GeneratorConfig(neural_rendering_resolution=128)``, weights drawn
+from seed 0) from two cameras: ``chip_smoke.py``'s, at yaw +0.35, where
+a ray's consecutive samples rarely share a cell on any plane, and a
+frontal one, where they mostly do on the plane that faces the camera. It
+keeps the planes and points of each render's two sampling passes, coarse
+and fine (N = 1, 3 x 32 x 256², M = 786,432), and adds the splat bench's
+points (``bench_splat_sched.make_inputs``: a 64² x 48 frustum march
+clipped to the box, M = 196,608, whose clipped points pile into the
+border cells) on the first render's coarse planes, each with a feature
+gradient drawn from seed 1. On them it checks every version against the
+plain one (the gather to 1e-5 abs, the splats to 1e-5 of the largest
+value) and times it (CUDA-event medians, ``scripts.median_ms``) beside
+the committed kernels, their scalar path (the same library, given
+planes, g and out one float past a 16-byte boundary), the library call
 (``F.grid_sample``, ``grid_sampler_2d_backward``) and the byte bound at
 an H100 SXM's 3.35 TB/s; the sorted splat whole, its prep and its
 segment kernel apart. The scheduled splat runs on the splat bench's
 entries at both of ``chip_smoke.py``'s point counts (a 128² and a 64² x
 48 frustum march on 256² planes), each schedule beside ``index_add_``.
-The versions run in turns, in order and then in reverse, and each time
-is the mean of the two medians.
-"""
+The tile walk runs on the gather bench's inputs
+(``bench_gather_vmem.make_inputs``) at the same two point counts, bf16
+and fp32, in block-local and in ray-major order: every version is held
+bit for bit against ``gather_rows_plain`` and its passes against
+``tilewalk_passes_plain``, then timed without passes (the committed one
+also with them) beside torch indexing of the same rows,
+``gather_rows.cu`` on the same bytes (row-major cells) and the byte
+bound. The versions run in turns, in order and then in reverse, and each
+time is the mean of the two medians."""
 
 from __future__ import annotations
 
@@ -56,7 +63,11 @@ from tgi_torch.ops import grid_sample as gs
 from tgi_torch.scripts import median_ms
 
 SOURCES = ("triplane_gather.cu", "triplane_splat.cu",
-           "triplane_splat_sorted.cu", "splat_sched.cu")
+           "triplane_splat_sorted.cu", "splat_sched.cu",
+           "gather_tilewalk.cu")
+# The gather bench's point layouts (rays Ry x Rx, S samples) on 256²
+# planes: P = 786,432 and 196,608, as chip_smoke.py's BENCH_LAYOUTS.
+TILEWALK_LAYOUTS = ((128, 128, 48), (64, 64, 48))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
 # The earlier sorted splat's C entry points.
@@ -322,6 +333,84 @@ def time_sched(libs, gen_inputs):
     return res
 
 
+def _bits(t):
+    """``t``'s bits, so that equality is bitwise (bf16 as int16)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def time_tilewalk(libs):
+    """The tile walk's versions on the gather bench's inputs: {case:
+    {version: ms}}, the bounds and the mean passes per block."""
+    from tgi_torch.ops import gather_rows as gr
+    from tgi_torch.scripts import bench_gather_vmem as bench
+    versions = {"committed": _native.library("gather_tilewalk.cu")}
+    versions.update({name: lib for (src, name), lib in libs.items()
+                     if src == "gather_tilewalk.cu"})
+    fetch = _native.library("gather_rows.cu")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def walk(name, exp, cells, out, passes=None):
+        G, HW, L = exp.shape
+
+        def run():
+            err = versions[name].tgi_gather_tilewalk(
+                exp.data_ptr(), cells.data_ptr(), out.data_ptr(),
+                None if passes is None else passes.data_ptr(), G, HW,
+                cells.shape[1], L * exp.element_size(), stream)
+            if err:
+                raise RuntimeError(f"gather_tilewalk {name!r} launch failed "
+                                   f"({err})")
+        return run
+
+    def rows(exp, cells, out):
+        G, HW, L = exp.shape
+
+        def run():
+            if fetch.tgi_gather_rows(exp.data_ptr(), cells.data_ptr(),
+                                     out.data_ptr(), G, HW, cells.shape[1],
+                                     L * exp.element_size(), stream):
+                raise RuntimeError("gather_rows launch failed")
+        return run
+
+    res = {"ms": {}, "bound_ms": {}, "passes_per_block": {}}
+    for Ry, Rx, S in TILEWALK_LAYOUTS:
+        t = bench.make_inputs("cuda", Ry, Rx, S, 256)
+        G, HW, L = t["exp32"].shape
+        P = Ry * Rx * S
+        for dt, exp, exp_t in (("bf16", t["exp16"], t["exp16_t"]),
+                               ("fp32", t["exp32"], t["exp32_t"])):
+            # out + plane + int32 cells, each once
+            nbytes = exp.element_size() * L * (G * P + G * HW) + 4 * G * P
+            for order, key in (("block-local", "cells_tiled_blocked"),
+                               ("ray-major", "cells_tiled")):
+                case = f"{dt} {order} P={P}"
+                cells = t[key]
+                idx = cells.long()
+                want = gr.gather_rows_plain(exp_t, cells)
+                n_want = gr.tilewalk_passes_plain(cells, HW)
+                fns = {"torch indexing": lambda exp_t=exp_t, idx=idx:
+                       exp_t[t["plane_idx"], idx],
+                       "gather_rows.cu, row-major cells": rows(
+                           exp, t["cells"], torch.empty_like(want))}
+                for name in versions:
+                    out = torch.full_like(want, math.nan)
+                    n = torch.full_like(n_want, -1)
+                    walk(name, exp_t, cells, out, n)()
+                    if not (torch.equal(_bits(out), _bits(want))
+                            and torch.equal(n, n_want)):
+                        raise SystemExit(f"gather_tilewalk {name!r} {case} "
+                                         f"differs from plain")
+                    fns[name] = walk(name, exp_t, cells, out)
+                fns["committed, with passes"] = walk(
+                    "committed", exp_t, cells, torch.empty_like(want),
+                    torch.empty_like(n_want))
+                res["ms"][case] = in_turns(fns)
+                res["bound_ms"][case] = nbytes / BW * 1e3
+                res["passes_per_block"][case] = n_want.float().mean().item()
+                del fns, out
+    return res
+
+
 def in_turns(fns):
     """{name: ms}: every fn timed in order, then in reverse; the mean of
     its two medians."""
@@ -414,7 +503,8 @@ def main(argv=None):
     ap.add_argument("--variants", nargs="*", default=[],
                     help="directories of other versions of the sources "
                     "(triplane_gather.cu, triplane_splat.cu, "
-                    "triplane_splat_sorted.cu, splat_sched.cu)")
+                    "triplane_splat_sorted.cu, splat_sched.cu, "
+                    "gather_tilewalk.cu)")
     ap.add_argument("--out", help="write the results as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -466,6 +556,18 @@ def main(argv=None):
                   flush=True)
     print(f"splat_sched, max errors against plain: "
           f"{max(sched['err'].values()):.3g}", flush=True)
+    walk = results["gather_tilewalk"] = time_tilewalk(libs)
+    for case, ms in walk["ms"].items():
+        bound = walk["bound_ms"][case]
+        print(f"gather_tilewalk {case} (bound {bound:.4f} ms, "
+              f"{walk['passes_per_block'][case]:.2f} passes per block):",
+              flush=True)
+        for k, v in ms.items():
+            print(f"  {v:8.4f} ms  x{v / ms['torch indexing']:5.2f} of "
+                  f"torch indexing  {100 * bound / v:5.1f} % of bound  {k}",
+                  flush=True)
+    print("gather_tilewalk: every version bitwise equal to plain, passes "
+          "equal to the plain count", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
