@@ -86,6 +86,16 @@ splat sums with atomics in an order that changes from run to run, so it
 is held to its plain version by a relative bound, not bit for bit; the
 sorted splat has no atomics.
 
+Phase 11, ``pkl_bf16``, drives the path of a user with an EG3D ``.pkl``
+in ``tgi``'s mixed precision: a full-width pickle in the reference's
+layout written in the process from the generator's weights, read through
+``run_pti.load_any_generator`` (bit for bit, a bf16 config), a 512² bf16
+render beside fp32, ``invert_one`` on the bf16 generator (20 float32
+projection steps, 10 bf16 tuning steps) through the gather and splat
+kernels in both stages, one bf16 tuning step's gradients through the
+kernels against the plain sampler, and a bf16 render and tuning step
+timed beside float32 ones.
+
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the tgi_torch package beside it, the
@@ -98,6 +108,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -133,6 +144,19 @@ STAGE1_STEPS = 60          # the 50 preheat steps and 10 joint ones
 # default route, ||Δ||_2 <= STAGE1_GRAD_TOL * ||want||_2 per group (w,
 # noise, pose net, translation), with deterministic cuDNN algorithms.
 STAGE1_GRAD_TOL = 1e-4
+# The .pkl path (phase 11): a bf16 generator's inversion, cut to 20
+# projection steps (10 preheat, 10 joint) and 10 tuning steps.
+PKL_STAGE1_STEPS = 20
+PKL_PTI_STEPS = 10
+# A bf16 tuning step's gradients, kernels vs plain sampler, ||Δ||_2 <=
+# BF16_GRAD_TOL * ||want||_2 per group (backbone, SR, decoder), with
+# deterministic cuDNN algorithms. The gather is bit-equal to plain, so
+# the SR and the decoder agree exactly; the backbone's gradient passes
+# through the splat's float atomics, whose order changes from call to
+# call: on an H100 the kernels read 4.5e-4 against the plain sampler and
+# 4.6e-4 to 4.9e-4 against themselves run twice. The limit stands about
+# 4 x above that, so a splat that is slightly wrong on this path fails.
+BF16_GRAD_TOL = 2e-3
 
 
 def fail(msg):
@@ -370,6 +394,168 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# Reference module classes by the key that holds them in the params tree
+# (EG3D's training/networks_stylegan2.py, superresolution.py,
+# triplane.py); every other dict of tensors is a FullyConnectedLayer.
+REF_CLASSES = {"backbone": "training.networks_stylegan2.Generator",
+               "mapping": "training.networks_stylegan2.MappingNetwork",
+               "synthesis": "training.networks_stylegan2.SynthesisNetwork",
+               "conv0": "training.networks_stylegan2.SynthesisLayer",
+               "conv1": "training.networks_stylegan2.SynthesisLayer",
+               "torgb": "training.networks_stylegan2.ToRGBLayer"}
+REF_BUFFERS = ("noise_const", "w_avg", "resample_filter")
+
+
+def reference_pickle(cfg, params, dtype=None):
+    """The bytes of a reference EG3D network pickle, ``{"G_ema": G}``,
+    holding ``params`` (the port's tree, any device) under the reference
+    ``state_dict`` names, with the layout the reference's persistence
+    machinery writes (torch_utils/persistence.py:37-60): each persistent
+    module reduces to ``torch_utils.persistence._reconstruct_persistent_obj``
+    of its meta, whose state carries ``_parameters`` (requires_grad off,
+    as in ``G_ema``), ``_buffers`` (``noise_const``, ``w_avg`` and the
+    ``resample_filter`` constants) and ``_modules``; the decoder is a plain
+    ``training.triplane.OSGDecoder`` around a ``torch.nn.Sequential``.
+    ``G``'s state holds EG3D's init args and kwargs for ``cfg`` (channel
+    base and max, ``sr_num_fp16_res``, the mapping depth, the rendering
+    kwargs as a ``dnnlib.EasyDict``) and ``neural_rendering_resolution``
+    as a pickled attribute; the backbone's, its resolution and channels
+    (triplane.py:28). ``dtype`` stores the weights in another dtype
+    (float16 for a force-fp16 pickle); the resample filters stay float32.
+
+    No code of the reference is needed: the classes it names are stand-ins
+    in modules registered in ``sys.modules`` only while pickling."""
+    import collections
+    import pickle
+    import types
+
+    import torch
+    from tgi_torch.ops.filters import setup_filter
+
+    modules = {}
+
+    def register(qualname, obj):
+        module, name = qualname.rsplit(".", 1)
+        obj.__module__, obj.__qualname__, obj.__name__ = module, name, name
+        for i in range(1, module.count(".") + 2):
+            part = ".".join(module.split(".")[:i])
+            modules.setdefault(part, types.ModuleType(part))
+        setattr(modules[module], name, obj)
+        return obj
+
+    def reconstruct(meta):
+        raise RuntimeError("never called: the pickle is only written here")
+
+    register("torch_utils.persistence._reconstruct_persistent_obj",
+             reconstruct)
+    easy_dict = register("dnnlib.util.EasyDict", type("EasyDict", (dict,), {}))
+
+    class Persistent:
+        def __init__(self, class_name, state):
+            self.class_name, self.state = class_name, state
+
+        def __reduce__(self):
+            return reconstruct, (dict(type="class", version=6,
+                                      module_src="", class_name=self.class_name,
+                                      state=self.state),)
+
+    def plain(class_name, state):
+        cls = register(class_name, type(class_name, (), {}))
+        obj = cls.__new__(cls)
+        obj.__dict__.update(state)
+        return obj
+
+    rfilter = torch.as_tensor(setup_filter([1, 3, 3, 1]))
+
+    def tensor(t):
+        t = t.detach().cpu()
+        return t.to(dtype) if dtype is not None else t.clone()
+
+    def module_state(tree, extra_buffers=(), **attrs):
+        state = {"training": False, "_parameters": collections.OrderedDict(),
+                 "_buffers": collections.OrderedDict(),
+                 "_non_persistent_buffers_set": set(),
+                 "_modules": collections.OrderedDict(),
+                 "_init_args": (), "_init_kwargs": {}, **attrs}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                state["_modules"][k] = build(k, v)
+            elif k in REF_BUFFERS:
+                state["_buffers"][k] = tensor(v)
+            else:
+                state["_parameters"][k] = torch.nn.Parameter(
+                    tensor(v), requires_grad=False)
+        for k in extra_buffers:
+            state["_buffers"][k] = rfilter.clone()
+        return state
+
+    def build(key, tree):
+        if re.fullmatch(r"b\d+|block\d", key):
+            return Persistent("training.networks_stylegan2.SynthesisBlock",
+                              module_state(tree, ("resample_filter",)))
+        name = REF_CLASSES.get(key,
+                               "training.networks_stylegan2.FullyConnectedLayer")
+        layer = name.endswith("SynthesisLayer")
+        return Persistent(name, module_state(
+            tree, ("resample_filter",) if layer else ()))
+
+    net = torch.nn.Sequential()
+    net._modules.update([("0", build("net0", params["decoder"]["net0"])),
+                         ("1", torch.nn.Softplus()),
+                         ("2", build("net1", params["decoder"]["net1"]))])
+    decoder = plain("training.triplane.OSGDecoder", {
+        "training": False, "_parameters": collections.OrderedDict(),
+        "_buffers": collections.OrderedDict(),
+        "_modules": collections.OrderedDict(net=net), "hidden_dim": 64})
+    sr_name = cfg.rendering_kwargs["superresolution_module"].rsplit(".", 1)[-1]
+    init_kwargs = {
+        "sr_num_fp16_res": cfg.sr_num_fp16_res,
+        "mapping_kwargs": {"num_layers": cfg.mapping_layers},
+        "rendering_kwargs": easy_dict(cfg.rendering_kwargs),
+        "sr_kwargs": {"channel_base": cfg.channel_base,
+                      "channel_max": cfg.channel_max,
+                      "fused_modconv_default": "inference_only"},
+        "channel_base": cfg.channel_base, "channel_max": cfg.channel_max,
+        "fused_modconv_default": "inference_only", "num_fp16_res": 0,
+        "conv_clamp": None}
+    state = module_state(
+        {"backbone": {"mapping": params["mapping"],
+                      "synthesis": params["backbone"]},
+         "superresolution": params["superresolution"]},
+        _init_args=(cfg.z_dim, cfg.c_dim, cfg.w_dim, cfg.img_resolution,
+                    cfg.img_channels),
+        _init_kwargs=init_kwargs, z_dim=cfg.z_dim, c_dim=cfg.c_dim,
+        w_dim=cfg.w_dim, img_resolution=cfg.img_resolution,
+        img_channels=cfg.img_channels,
+        rendering_kwargs=dict(cfg.rendering_kwargs),
+        neural_rendering_resolution=cfg.neural_rendering_resolution)
+    state["_modules"]["backbone"].state.update(
+        _init_args=(cfg.z_dim, cfg.c_dim, cfg.w_dim),
+        _init_kwargs={"img_resolution": cfg.backbone_resolution,
+                      "img_channels": cfg.plane_channels * cfg.n_planes,
+                      "mapping_kwargs": init_kwargs["mapping_kwargs"],
+                      **init_kwargs["sr_kwargs"]})
+    state["_modules"]["superresolution"].class_name = (
+        f"training.superresolution.{sr_name}")
+    state["_modules"]["renderer"] = plain(
+        "training.volumetric_rendering.renderer.ImportanceRenderer",
+        {"training": False, "_parameters": {}, "_buffers": {},
+         "_modules": {}})
+    state["_modules"]["decoder"] = decoder
+    G = Persistent("training.triplane.TriPlaneGenerator", state)
+
+    saved = {name: sys.modules.get(name) for name in modules}
+    sys.modules.update(modules)
+    try:
+        return pickle.dumps({"G_ema": G}, protocol=4)
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
 
 
 def phase_generate(torch, gs, G, params, tmp):
@@ -1064,6 +1250,203 @@ def phase_route_spread(runs):
             f"{runs[a]['losses1'][-1]:.5g}, {runs[b]['losses1'][-1]:.5g}")
 
 
+def phase_pkl_bf16(torch, gs, G, params, nets, tmp):
+    """The path of a user with an EG3D ``.pkl``, in ``tgi``'s mixed
+    precision: a full-width reference-layout pickle of the generator's
+    weights, written here (``reference_pickle``), read back through
+    ``run_pti.load_any_generator`` (a bf16 generator, every parameter bit
+    for bit); a 512² render in bf16 beside fp32; ``invert_one`` on the
+    bf16 generator without pivots (PKL_STAGE1_STEPS float32 projection
+    steps, PKL_PTI_STEPS tuning steps in bf16) with every count set to 0
+    before it; one bf16 tuning step's gradients through the kernels
+    against the plain sampler; a bf16 render and tuning step timed beside
+    float32 ones. Returns the launches per part and the times."""
+    import numpy as np
+    from tgi_torch.apps.run_pti import invert_one, load_any_generator
+    from tgi_torch.invert.coach import CoachConfig, PTICoach
+    from tgi_torch.invert.projector import Projector, ProjectorConfig
+    from tgi_torch.losses.lpips import make_lpips
+    import tgi_torch.render.renderer as renderer
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "ffhqrebalanced512-128.pkl")
+    with open(path, "wb") as f:
+        f.write(reference_pickle(G.cfg, params))
+    t1 = time.perf_counter()
+    G16, p16 = load_any_generator(path, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"pkl_bf16: wrote a {os.path.getsize(path) / 2 ** 20:.1f} MiB "
+        f"reference pickle in {t1 - t0:.1f} s, read it through "
+        f"load_any_generator in {time.perf_counter() - t1:.1f} s: "
+        f"fused_dtype {G16.cfg.fused_dtype}, sr_num_fp16_res "
+        f"{G16.cfg.sr_num_fp16_res}, neural_rendering_resolution "
+        f"{G16.cfg.neural_rendering_resolution}")
+    check(G16.cfg.fused_dtype == "bfloat16"
+          and dataclasses.replace(G16.cfg, fused_dtype="float32") == G.cfg,
+          f"the pickle's config {G16.cfg} is not the generator's in bf16")
+    got, want = dict(_named_leaves(p16)), dict(_named_leaves(params))
+    check(set(got) == set(want) and all(
+        torch.equal(got[k], want[k]) for k in want),
+          "the pickle's parameters do not read back bit for bit")
+    log(f"pkl_bf16: all {len(want)} parameter tensors read back bit for bit")
+
+    zero_counts(gs)
+    out16 = render_once(torch, G16, p16)
+    torch.cuda.synchronize()
+    render_launches = counts(gs)
+    out32 = render_once(torch, G, params)
+    img16, img32 = out16["image"], out32["image"]
+    R = G.cfg.img_resolution
+    check(bool(torch.isfinite(img16).all()) and tuple(img16.shape) == (
+        1, 3, R, R), f"bf16 render {tuple(img16.shape)} not finite")
+    d = (img16 - img32).abs()
+    psnr = 10 * math.log10(4.0 / (d.square().mean().item() or 1e-30))
+    log(f"pkl_bf16: {R}² render, bf16 vs fp32: max abs diff "
+        f"{d.max().item():.4g}, mean abs diff {d.mean().item():.4g}, PSNR "
+        f"{psnr:.2f} dB (peak-to-peak 2); image_raw max abs diff "
+        f"{(out16['image_raw'] - out32['image_raw']).abs().max().item():.4g};"
+        f" launches {render_launches}")
+    check(render_launches["triplane_gather"] == 2,
+          f"the bf16 render launched {render_launches}")
+
+    pose, vgg, head = nets
+    img, t255 = stage1_target(torch, G, params)
+    out = os.path.join(tmp, "pkl_bf16")
+    os.makedirs(out)
+    proj = Projector(G16, p16, vgg, head, pose, ProjectorConfig(
+        num_steps=PKL_STAGE1_STEPS, cam_preheat_steps=PKL_STAGE1_STEPS // 2))
+    lpips = make_lpips("alex", generator=torch.Generator().manual_seed(5),
+                       device=DEVICE)
+    coach = PTICoach(G16, lpips, CoachConfig(max_pti_steps=PKL_PTI_STEPS,
+                                             lpips_threshold=0.0))
+    at_stage2 = {}
+    real_tune = coach.tune
+
+    def tune(gen_params, ws, cam, *args, **kw):
+        torch.cuda.synchronize()
+        at_stage2.update(launches=counts(gs), t=time.perf_counter(), ws=ws,
+                         cam=cam)
+        return real_tune(gen_params, ws, cam, *args, **kw)
+
+    coach.tune = tune
+    try:
+        import PIL  # noqa: F401
+        png_renders = 2
+    except ImportError:
+        png_renders = 0
+    torch.cuda.synchronize()
+    zero_counts(gs)
+    t0 = time.perf_counter()
+    entry, tuned, info = invert_one(
+        "face", img, G=G16, gen_params=p16, coach=coach, out_dir=out,
+        projector=proj, target_255=t255, use_last_w_pivots=False,
+        generator=torch.Generator(device=DEVICE).manual_seed(11))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = counts(gs)
+    stage1 = at_stage2["launches"]
+    stage2 = {k: total[k] - stage1[k] for k in total}
+    losses1 = info["projection"]["loss"]
+    log(f"pkl_bf16: invert_one on the bf16 generator in {wall:.1f} s "
+        f"(stage 1 {at_stage2['t'] - t0:.1f} s): stage 1 {len(losses1)} "
+        f"fp32-render steps, loss {losses1[0]:.5g} -> {losses1[-1]:.5g}; "
+        f"stage 2 {info['steps']} bf16 steps, loss {info['losses'][0]:.5g}"
+        f" -> {info['losses'][-1]:.5g}; launches stage 1 {stage1}, stage 2 "
+        f"{stage2}; entry {entry}")
+    check(len(losses1) == PKL_STAGE1_STEPS and info["steps"] == PKL_PTI_STEPS
+          and all(math.isfinite(x) for x in losses1 + info["losses"]),
+          f"{len(losses1)} projection, {info['steps']} tuning steps, "
+          f"losses {losses1}, {info['losses']}")
+    want1 = {"triplane_gather": 4 * PKL_STAGE1_STEPS,
+             "triplane_splat": 4 * PKL_STAGE1_STEPS}
+    want2 = {"triplane_gather": 2 * (PKL_PTI_STEPS + png_renders),
+             "triplane_splat": 2 * PKL_PTI_STEPS}
+    check(all(stage1[k] == v for k, v in want1.items())
+          and all(stage2[k] == v for k, v in want2.items()),
+          f"launches stage 1 {stage1}, stage 2 {stage2}; expected {want1}, "
+          f"{want2}")
+    check(all(t.dtype == torch.float32 for t in _leaves(tuned)),
+          "the tuned parameters are not float32")
+    check(np.isfinite(np.load(os.path.join(out, "face_ws.npy"))).all(),
+          "non-finite pivot")
+
+    ws, cam = at_stage2["ws"], at_stage2["cam"]
+    res = G16.cfg.neural_rendering_resolution
+    rk = G16.cfg.rendering_kwargs
+    cpu = torch.Generator().manual_seed(12)
+    jitter = torch.rand(1, res * res, rk["depth_resolution"], 1,
+                        generator=cpu).to(DEVICE)
+    u = torch.rand(res * res, rk["depth_resolution_importance"],
+                   generator=cpu).to(DEVICE)
+    tree = _map_detach(p16)
+    leaves = dict(_named_leaves(tree))
+
+    def grads(sampler):
+        renderer.sample_triplanes = sampler
+        for t in leaves.values():
+            t.grad = None
+        try:
+            loss, _ = coach._loss(tree, ws, cam, img, jitter=jitter, u=u)
+            loss.backward()
+            torch.cuda.synchronize()
+            return {k: t.grad for k, t in leaves.items()
+                    if t.grad is not None}
+        finally:
+            renderer.sample_triplanes = gs.sample_triplanes
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        zero_counts(gs)
+        kernel = grads(gs.sample_triplanes)
+        check_launches = counts(gs)
+        again = grads(gs.sample_triplanes)
+        plain = grads(gs.sample_triplanes_plain)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(check_launches["triplane_gather"] == 2
+          and check_launches["triplane_splat"] == 2,
+          f"one bf16 tuning step launched {check_launches}")
+    check(all(t.dtype == torch.float32 for t in kernel.values()),
+          "a bf16 step gave a gradient that is not float32")
+    worst = 0.0
+    for group in ("backbone", "superresolution", "decoder"):
+        err, scale = _group_err(torch, kernel, plain, group)
+        err2, _ = _group_err(torch, again, kernel, group)
+        log(f"pkl_bf16: bf16 stage-2 gradient of {group}: norm {scale:.4g}; "
+            f"kernels vs plain sampler: norm err {err:.3g}; kernels twice: "
+            f"{err2:.3g}")
+        check(math.isfinite(scale) and scale > 0,
+              f"the bf16 step gives {group} no gradient")
+        check(err <= BF16_GRAD_TOL, f"{group}: bf16 gradient, kernels vs "
+              f"plain sampler {err} > {BF16_GRAD_TOL}")
+        worst = max(worst, err)
+
+    walls = {"float32": [], "bfloat16": []}
+    for _ in range(3):
+        for name, gen, p in (("float32", G, params), ("bfloat16", G16, p16)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_once(torch, gen, p)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    render_ms = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"times, one full-width render (mapping + synthesis, {R}² image; "
+        f"host clock, in turns): fp32 median {render_ms['float32']:.1f} ms "
+        f"of {walls['float32']}, bf16 (.pkl) median "
+        f"{render_ms['bfloat16']:.1f} ms of {walls['bfloat16']}")
+
+    st16 = dict(coach=coach, ws=ws, cam=cam, target=img)
+    coach32 = PTICoach(G, lpips, CoachConfig(max_pti_steps=PKL_PTI_STEPS,
+                                             lpips_threshold=0.0))
+    step32, _ = phase_step_times(torch, gs, params, dict(st16, coach=coach32),
+                                 label="fp32 (beside bf16)")
+    step16, _ = phase_step_times(torch, gs, p16, st16, label="bf16 (.pkl)")
+    return {"render": render_launches, "stage1": stage1, "stage2": stage2,
+            "wall": wall, "grad_worst": worst, "step_ms": {
+                "float32": step32["step"], "bfloat16": step16["step"]},
+            "render_ms": render_ms, "render_psnr": psnr}
+
+
 def phase_forward_repeat(torch, G, params, st):
     """Which of stage 1's inputs and forwards repeat their bits when run
     twice: the target render, the w statistics of 5000 latents, and one
@@ -1306,7 +1689,8 @@ def phase_times(torch, gs, G, params, bw):
             "bound_ms": mean[3], "bound_by": rows[0][4]}
 
 
-def phase_step_times(torch, gs, params, st, steps=6, warmup=2):
+def phase_step_times(torch, gs, params, st, steps=6, warmup=2,
+                     label="full-width"):
     """One tuning step — the body of ``PTICoach.tune``: the loss forward
     with its LPIPS read back for the threshold check, the backward, the
     Adam update — on CUDA events, split into those three parts, and on
@@ -1356,7 +1740,7 @@ def phase_step_times(torch, gs, params, st, steps=6, warmup=2):
             parts["step_host"].append(host)
     med = {k: statistics.median(v) for k, v in parts.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"times, one full-width tuning step (median of {steps}): "
+    log(f"times, one {label} tuning step (median of {steps}): "
         f"{med['step']:.2f} ms = forward {med['forward']:.2f} + backward "
         f"{med['backward']:.2f} + Adam {med['adam']:.2f} ms (CUDA events); "
         f"host clock {med['step_host']:.2f} ms; peak memory {peak:.2f} GiB; "
@@ -1765,6 +2149,7 @@ def main():
                 for label in ("pack", "pack_again", "mxu", "mxu_again")}
         phase_route_spread(runs)
         phase_forward_repeat(torch, G, params, st1)
+        pkl = phase_pkl_bf16(torch, gs, G, params, nets, tmp)
     gather_times = phase_times(torch, gs, G, params, bw)
     _, seen = phase_step_times(torch, gs, params, st)
     splat_times = phase_splat_times(torch, gs, seen, bw)
@@ -1806,7 +2191,13 @@ def main():
                              "run_pti_stage1_mxu": mxu["stage1"][
                                  "triplane_gather"],
                              "bench_gather_vmem": bench_launches[
-                                 "bench_gather_vmem"]["triplane_gather"]},
+                                 "bench_gather_vmem"]["triplane_gather"],
+                             "pkl_bf16_render": pkl["render"][
+                                 "triplane_gather"],
+                             "run_pti_pkl_bf16_stage1": pkl["stage1"][
+                                 "triplane_gather"],
+                             "run_pti_pkl_bf16_stage2": pkl["stage2"][
+                                 "triplane_gather"]},
         "max_abs_err": gather_err, **gather_times}, {
         "name": "triplane_splat", "route": "cuda",
         "source": "tgi_torch/csrc/triplane_splat.cu",
@@ -1820,7 +2211,11 @@ def main():
                              "run_pti_stage1_mxu": mxu["stage1"][
                                  "triplane_splat"],
                              "bench_splat_sched": bench_launches[
-                                 "bench_splat_sched"]["triplane_splat"]},
+                                 "bench_splat_sched"]["triplane_splat"],
+                             "run_pti_pkl_bf16_stage1": pkl["stage1"][
+                                 "triplane_splat"],
+                             "run_pti_pkl_bf16_stage2": pkl["stage2"][
+                                 "triplane_splat"]},
         "max_abs_err": splat_err, "max_rel_err": splat_rel,
         **splat_times, "check_shape_c16": small_splat}, {
         "name": "triplane_splat_sorted", "route": "cuda",
@@ -1837,7 +2232,12 @@ def main():
         **sorted_times}, *bench_entries],
         "stage1_step_ms": {m: v["step"] for m, v in step1.items()},
         "stage1_launches_per_step": per_step,
-        "stage1_stage2_wall_s": {m: r["wall"] for m, r in runs.items()}}),
+        "stage1_stage2_wall_s": {m: r["wall"] for m, r in runs.items()},
+        "pkl_bf16": {"tuning_step_ms": pkl["step_ms"],
+                     "render_ms_host": pkl["render_ms"],
+                     "render_psnr_bf16_vs_fp32": pkl["render_psnr"],
+                     "grad_norm_err_kernels_vs_plain": pkl["grad_worst"],
+                     "invert_one_wall_s": pkl["wall"]}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -148,9 +148,35 @@ def test_generate_samples_writes_pngs(pair, tmp_path):
     assert none[0]["path"] is None
 
 
-def test_refuses_reduced_precision():
-    with pytest.raises(NotImplementedError):
-        GeneratorConfig(fused_dtype="bfloat16")
+def test_refuses_reduced_precision(pair):
+    """bf16 is no longer refused: ``fused_dtype="bfloat16"`` builds, and
+    its backbone's blocks at ``fp16_resolution`` and above (8-32 here)
+    return bf16 activations while the 4² block and the planes stay
+    float32; any other dtype is refused."""
+    from tgi_torch.nn.synthesis import block_dtype, synthesis_block_apply
+    _, _, gt, pt = pair
+    cfg = GeneratorConfig(**{**gt.cfg.__dict__, "fused_dtype": "bfloat16"})
+    bb = cfg.backbone_cfg
+    assert bb.fused_dtype == "bfloat16" and bb.fp16_resolution == 8
+    ws = torch.from_numpy(np.random.RandomState(6).randn(
+        1, cfg.num_ws, 32).astype(np.float32))
+    x = img = None
+    w_idx = 0
+    for res in bb.resolutions:
+        n = 1 if res == 4 else 2
+        x, img = synthesis_block_apply(
+            pt["backbone"][f"b{res}"], x, img, ws[:, w_idx:w_idx + n + 1],
+            in_channels=bb.channels[res // 2] if res > 4 else 0,
+            dtype=block_dtype("bfloat16", res >= bb.fp16_resolution))
+        w_idx += n
+        assert x.dtype == (torch.bfloat16 if res >= 8 else torch.float32)
+        assert img.dtype == torch.float32
+    planes = TriPlaneGenerator(cfg).backbone_planes(pt, ws)
+    assert planes.dtype == torch.float32
+    torch.testing.assert_close(planes.reshape(img.shape), img, rtol=0,
+                               atol=0)
+    with pytest.raises(ValueError):
+        GeneratorConfig(fused_dtype="float16")
 
 
 def test_gen_samples_cli_help(capsys):

@@ -1,5 +1,6 @@
-"""tgi_torch and chip_smoke.py stand alone: no jax, no tgi, and no click or
-PIL at module level (the card's machine has none of them)."""
+"""tgi_torch and chip_smoke.py stand alone: no jax, no ml_dtypes, no tgi,
+and no click or PIL at module level (the card's machine has none of
+them)."""
 
 import ast
 import os
@@ -42,7 +43,7 @@ def _imports(node):
 def test_no_forbidden_imports(path):
     tree = ast.parse(open(path).read(), path)
     anywhere = {m for n in ast.walk(tree) for m in _imports(n)}
-    assert not anywhere & {"jax", "jaxlib", "tgi"}, anywhere
+    assert not anywhere & {"jax", "jaxlib", "ml_dtypes", "tgi"}, anywhere
     top = {m for n in tree.body for m in _imports(n)}
     assert not top & {"click", "PIL"}, top
 
@@ -52,7 +53,8 @@ def test_import_without_jax_or_tgi():
     with jax and tgi made unimportable."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'tgi', 'click', 'PIL'):\n"
+        "for name in ('jax', 'jaxlib', 'ml_dtypes', 'tgi', 'click', "
+        "'PIL'):\n"
         "    sys.modules[name] = None\n"
         f"sys.path.insert(0, {REPO!r})\n"
         "import importlib\n"
@@ -72,5 +74,6 @@ def test_scan_covers_the_stage2_modules():
     assert {"tgi_torch.apps.run_pti", "tgi_torch.invert.coach",
             "tgi_torch.io.checkpoints", "tgi_torch.losses.basic",
             "tgi_torch.losses.lpips", "tgi_torch.losses.warp",
-            "tgi_torch.models.alexnet", "tgi_torch.utils.image"} <= set(
+            "tgi_torch.models.alexnet", "tgi_torch.utils.image",
+            "tgi_torch.io.pickle_import", "tgi_torch.io.validate"} <= set(
                 _modules())

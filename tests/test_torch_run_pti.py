@@ -129,7 +129,9 @@ def test_checkpoint_round_trip(setup, tmp_path):
     assert data["config"]["rendering_kwargs"]["depth_resolution"] == 8
     assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
         leaves_with_paths(data["params"]), leaves_with_paths(pt)))
-    G, params = app.load_generator(path, "cpu")
-    assert G.cfg == gt.cfg
-    with pytest.raises(NotImplementedError, match="pickle"):
-        app.load_generator(str(tmp_path / "g.pkl"), "cpu")
+    G, params = app.load_any_generator(path, device="cpu")
+    assert G.cfg == gt.cfg       # a .pt keeps its stored config (fp32)
+    # A .pkl goes to the reference-pickle reader
+    # (tests/test_torch_pickle_import.py, tests/test_torch_pkl_apps.py).
+    with pytest.raises(FileNotFoundError):
+        app.load_any_generator(str(tmp_path / "g.pkl"), device="cpu")

@@ -20,8 +20,8 @@ from tgi_torch.io.checkpoints import save_checkpoint
 from tgi_torch.models.generator import (GeneratorConfig, TriPlaneGenerator,
                                         default_rendering_kwargs)
 
-from torch_helpers import (TINY, TINY_RK, leaves_with_paths, tiny_aux_nets,
-                           tiny_camera)
+from torch_helpers import (TINY, TINY_RK, check_aux_at_tiny_scale,
+                           leaves_with_paths, tiny_aux_nets, tiny_camera)
 
 
 @pytest.fixture(scope="module")
@@ -107,10 +107,12 @@ def _state_dict(tree):
     return {".".join(p): t for p, t in leaves_with_paths(tree)}
 
 
-def test_run_pti_cli_without_pivots(setup, tmp_path, capsys):
+def test_run_pti_cli_without_pivots(setup, tmp_path, capsys, monkeypatch):
     """The CLI reads the pose net and VGG (with its LPIPS head) from
-    torch state dicts, runs stage 1 and stage 2, and writes the pivots."""
+    torch state dicts, checks them against their inits' trees at the
+    small nets' scale, runs stage 1 and stage 2, and writes the pivots."""
     pytest.importorskip("click")
+    check_aux_at_tiny_scale(monkeypatch)
     gt, pt = setup["gt"], setup["pt"]
     imgs, out = _target(tmp_path, gt, pt)
     net = tmp_path / "G.pt"

@@ -165,37 +165,64 @@ def jit_ref(fn, **jit_kwargs):
                    **jit_kwargs)
 
 
-def assert_updates_match(tuned, want, start, steps, grads, lr=3e-4):
+def assert_updates_match(tuned, want, start, steps, grads, lr=3e-4,
+                         ref_grads=None):
     """Tuned parameters against the reference's, through the update each
     element received (``Δ = tuned - start``).
 
     Adam moves a weight by about ``lr`` per step whatever the size of its
-    gradient, so an element whose gradient sits at the fp32 rounding
-    floor (the gradients agree to 1e-4 of their leaf's largest) may step
-    either way in either package. Every element is held within
-    ``2 · steps · lr`` (the most Adam moves it). Elements whose
-    reference gradient is at least 1e-2 of the leaf's largest at every
-    step in ``grads`` (per-step gradient trees; the first step's alone
-    where only it is at hand: three steps of lr 3e-4 barely move a
-    gradient), whose sign and size rounding cannot change, are held
-    within ``2e-2 · steps · lr``: a 1e-2 relative gradient error moves
-    Adam's m/sqrt(v) by at most ~2e-2."""
+    gradient, so an element whose gradient sits at the rounding floor may
+    step either way in either package. Every element is held within
+    ``2 · steps · lr`` (the most Adam moves it). Elements whose gradient
+    is sure at every step in ``grads`` (per-step gradient trees of the
+    reference; the first step's alone where only it is at hand: three
+    steps of lr 3e-4 barely move a gradient), so that the port's error
+    cannot change its sign and changes its size little, are held within
+    ``2e-2 · steps · lr``, and where their gradient is not zero the
+    port's update on them is not zero either:
+    at least ``lr / 4`` over one or two steps (Adam's two-step update is
+    at least 0.26 · lr, whatever the ratio and signs of the two
+    gradients; three steps can cancel).
+
+    Float32 (``ref_grads`` None): sure where the gradient is at least
+    1e-2 of the leaf's largest, since the gradients agree to 1e-4 of it
+    and a 1e-2 relative error moves Adam's m/sqrt(v) by at most ~2e-2.
+    Reduced precision (``ref_grads``: the same steps' float32 gradients
+    of the reference): with D = ‖g − g_ref‖∞ over the leaf, the port's
+    gradient is held within 2 · D + 2⁻⁷ · max|g_ref| of ``g`` (the bf16
+    gradient bound), so an element is sure where
+    |g| ≥ 2 · (2 · D + 2⁻⁷ · max|g_ref|): the port's gradient there is
+    within half of the reference's and of the same sign. At least ten
+    leaves must have sure elements."""
     start = dict(leaves_with_paths(start))
     got = dict(leaves_with_paths(tuned))
     hist = [dict(leaves_with_paths(g)) for g in grads]
-    moved = 0
+    refs = ([dict(leaves_with_paths(g)) for g in ref_grads]
+            if ref_grads is not None else [None] * len(hist))
+    moved = held = 0
     for path, w in leaves_with_paths(want):
         d_want = np.asarray(w) - np.asarray(start[path])
-        err = np.abs(got[path].numpy() - np.asarray(start[path]) - d_want)
+        d_got = got[path].numpy() - np.asarray(start[path])
+        err = np.abs(d_got - d_want)
         assert err.max() <= 2 * steps * lr, (path, err.max())
         sure = np.ones(d_want.shape, bool)
-        for h in hist:
-            g = np.abs(np.asarray(h[path]))
-            sure &= g >= 1e-2 * g.max()
+        live = np.ones(d_want.shape, bool)
+        for h, r in zip(hist, refs):
+            g = np.asarray(h[path])
+            live &= g != 0
+            if r is None:
+                sure &= np.abs(g) >= 1e-2 * np.abs(g).max()
+            else:
+                r = np.asarray(r[path])
+                floor = 2 * np.abs(g - r).max() + 2.0 ** -7 * np.abs(r).max()
+                sure &= (np.abs(g) >= 2 * floor) & (floor > 0)
         assert (err[sure] <= 2e-2 * steps * lr).all(), (path,
                                                         err[sure].max())
+        least = lr / 4 if steps <= 2 else 0
+        assert (np.abs(d_got[sure & live]) > least).all(), path
         moved += int(np.abs(d_want).max() > 0)
-    assert moved > 10
+        held += int((sure & live).any())
+    assert moved > 10 and held > 10, (moved, held)
 
 
 def tiny_aux_nets(seed=0, camera_dims=4):
@@ -208,6 +235,20 @@ def tiny_aux_nets(seed=0, camera_dims=4):
                                       width_mult=0.125, blocks=(1, 1, 1, 1)),
             vgg.vgg16_init(gen, "cpu", width_mult=0.125),
             vgg.lpips_head_init(gen, "cpu", width_mult=0.125))
+
+
+# The scale of ``tiny_aux_nets``. The command line checks weight files
+# against the full-width nets, as tgi does; a test that hands it the
+# small nets names their scale with ``check_aux_at_tiny_scale``.
+TINY_AUX = dict(width_mult=0.125, pose_blocks=(1, 1, 1, 1))
+
+
+def check_aux_at_tiny_scale(monkeypatch):
+    """Make ``run_pti``'s weight-file check expect ``tiny_aux_nets``."""
+    import functools
+    from tgi_torch.apps import run_pti
+    monkeypatch.setattr(run_pti, "validate_aux", functools.partial(
+        run_pti.validate_aux, **TINY_AUX))
 
 
 def script_defs(path, **overrides):

@@ -1,9 +1,12 @@
 """Sample images from a generator (twin of ``tgi/apps/gen_samples.py``;
 parity target gen_samples.py: seeds -> images at yaw/pitch offsets).
 
-There is no checkpoint in the repository yet, so the command line draws
-the weights from a seed. ``click`` and ``PIL`` are imported only by the
-command line and by PNG writing.
+The command line reads the generator from ``--network`` — a reference
+EG3D ``.pkl``, rendered in bf16 mixed precision as ``tgi`` renders it,
+or the port's ``.pt`` — or, without it, draws full-width weights from
+``--weights-seed``. ``--shapes`` is not ported yet (ROADMAP Queue A
+item 11). ``click`` and ``PIL`` are imported only by the command line
+and by PNG writing.
 """
 
 from __future__ import annotations
@@ -77,25 +80,36 @@ def generate_samples(G, params, seeds, *, outdir=None, truncation_psi=0.7,
 
 
 def main(argv=None):
-    """Command line: ``python -m tgi_torch.apps.gen_samples --outdir DIR``."""
+    """Command line: ``python -m tgi_torch.apps.gen_samples --network
+    G.pkl --outdir DIR``."""
     import click
 
     from tgi_torch.models.generator import GeneratorConfig, TriPlaneGenerator
 
     @click.command()
+    @click.option("--network", default=None,
+                  help="a reference EG3D .pkl (rendered in bf16 mixed "
+                       "precision, as tgi does) or the port's .pt; "
+                       "without it, random weights")
     @click.option("--seeds", default="0-3", help="e.g. 0,1,5-10")
     @click.option("--outdir", required=True)
     @click.option("--trunc", "truncation_psi", default=0.7)
     @click.option("--weights-seed", default=0,
-                  help="seed of the random weights (no checkpoint yet)")
+                  help="seed of the random weights (without --network)")
     @click.option("--render-res", default=128,
-                  help="neural rendering resolution")
+                  help="neural rendering resolution of the random weights "
+                       "(a --network keeps its own)")
     @click.option("--device", default=default_device())
-    def cli(seeds, outdir, truncation_psi, weights_seed, render_res, device):
-        G = TriPlaneGenerator(GeneratorConfig(
-            neural_rendering_resolution=render_res))
-        params = G.init(torch.Generator().manual_seed(weights_seed),
-                        device=device)
+    def cli(network, seeds, outdir, truncation_psi, weights_seed, render_res,
+            device):
+        if network:
+            from tgi_torch.apps.run_pti import load_any_generator
+            G, params = load_any_generator(network, device=device)
+        else:
+            G = TriPlaneGenerator(GeneratorConfig(
+                neural_rendering_resolution=render_res))
+            params = G.init(torch.Generator().manual_seed(weights_seed),
+                            device=device)
         for r in generate_samples(G, params, parse_range(seeds),
                                   outdir=outdir,
                                   truncation_psi=truncation_psi,

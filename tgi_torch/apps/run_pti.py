@@ -13,16 +13,24 @@ stage 1 is skipped and the pivots are reloaded (base_coach.py:69-77). It
 writes ``{name}_G.pt`` (the tuned generator), ``{name}.png`` and
 ``{name}_pivot.png`` (where Pillow is installed) and ``results.json``.
 
+The generator comes from a reference EG3D ``.pkl`` (read by
+``tgi_torch.io.pickle_import``, no code from the pickle runs) or from the
+port's own ``.pt``. A ``.pkl`` runs in ``tgi``'s mixed precision: its
+generator gets ``fused_dtype="bfloat16"``, stage 1 still renders in
+float32 (``ProjectorConfig.render_fp32``) and stage 2 tunes in the
+generator's bf16 blocks. A ``.pt`` keeps the config stored with it.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
 skipped: the e4e start of stage 1 and its snapshots (ROADMAP Queue A
 items 9 and 7), orbit videos, meshes and metrics (items 9, 11, 15), the
-locality regulariser (item 8), batched inversion (item 18), tensorboard
-and wandb (item 9), and reference ``.pkl`` generators (item 9). ``click``
-and ``PIL`` are imported only where they are used.
+locality regulariser (item 8), batched inversion (item 18), and
+tensorboard and wandb (item 9). ``click`` and ``PIL`` are imported only
+where they are used.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -33,6 +41,9 @@ import torch
 
 from tgi_torch import default_device
 from tgi_torch.apps.gen_samples import parse_range  # noqa: F401 (tgi's API)
+
+CAMERA_DIMS = {"2d": 2, "quat": 4, "6d": 6}   # the pose head's outputs
+
 
 def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet "
@@ -50,13 +61,20 @@ def pivot_files(out_dir, name):
             os.path.join(out_dir, f"{name}_cam.npy"))
 
 
-def load_generator(path, device):
-    """The port's ``.pt`` checkpoint -> (TriPlaneGenerator, params)."""
+def load_any_generator(path, fused_dtype="bfloat16", device=None):
+    """A reference ``.pkl`` or the port's ``.pt`` -> (TriPlaneGenerator,
+    params on ``device``).
+
+    A ``.pkl`` gets ``fused_dtype`` (bf16 by default, as in ``tgi``); a
+    ``.pt`` takes the config stored with it."""
     from tgi_torch.io.checkpoints import load_checkpoint
+    from tgi_torch.io.pickle_import import load_generator
     from tgi_torch.models.generator import GeneratorConfig, TriPlaneGenerator
+    device = device or default_device()
     if path.endswith(".pkl"):
-        raise _not_ported("reading a reference .pkl (io/pickle_import.py)",
-                          9)
+        cfg, params = load_generator(path, device=device)
+        return (TriPlaneGenerator(dataclasses.replace(
+            cfg, fused_dtype=fused_dtype)), params)
     data = load_checkpoint(path, device=device)
     cfg = GeneratorConfig(**(data["config"] or {}))
     return TriPlaneGenerator(cfg), data["params"]
@@ -164,7 +182,7 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
     weights = torch.Generator().manual_seed(seed)
     if pose_params is None:
         pose_params = resnet34_init(
-            weights, output_dims={"2d": 2, "quat": 4, "6d": 6}[camera_mode],
+            weights, output_dims=CAMERA_DIMS[camera_mode],
             device=device)
     if vgg_params is None:
         vgg_params = vgg16_init(weights, device)
@@ -207,6 +225,41 @@ def load_state_dict(path):
     return sd.get("state_dict", sd)
 
 
+def validate_aux(pose_params=None, vgg_params=None, lpips_head=None,
+                 alex_params=None, alex_head=None, camera_dims=4,
+                 width_mult=1.0, pose_blocks=None):
+    """Check each converted weight tree against its init's tree of names
+    and shapes, as ``tgi/apps/run_pti.py:388-420`` does; raises ValueError
+    with the difference.
+
+    The command line checks at full width: ResNet-34's blocks, 64-channel
+    stems. ``width_mult`` and ``pose_blocks`` name a scaled pose net and
+    VGG (the tests' small nets); AlexNet and its LPIPS head are always
+    full width."""
+    from tgi_torch.io.validate import expected_spec, validate_tree
+    from tgi_torch.models.alexnet import alex_head_init, alexnet_init
+    from tgi_torch.models.pose_resnet import BLOCKS_34, resnet34_init
+    from tgi_torch.models.vgg import lpips_head_init, vgg16_init
+    gen = torch.Generator()
+    if pose_params is not None:
+        validate_tree(pose_params, expected_spec(
+            resnet34_init, gen, output_dims=camera_dims,
+            blocks=pose_blocks or BLOCKS_34, width_mult=width_mult),
+            "pose estimator")
+    if vgg_params is not None:
+        validate_tree(vgg_params, expected_spec(
+            vgg16_init, gen, width_mult=width_mult), "vgg16")
+    if lpips_head is not None:
+        validate_tree(lpips_head, expected_spec(
+            lpips_head_init, gen, width_mult=width_mult), "lpips-vgg head")
+    if alex_params is not None:
+        validate_tree(alex_params, expected_spec(alexnet_init, gen),
+                      "alexnet trunk")
+    if alex_head is not None:
+        validate_tree(alex_head, expected_spec(alex_head_init, gen),
+                      "lpips-alex head")
+
+
 def main(argv=None):
     """Command line: ``python -m tgi_torch.apps.run_pti --network G.pt
     --images DIR --outdir DIR``. The options mirror ``tgi``'s; those of
@@ -215,7 +268,11 @@ def main(argv=None):
 
     @click.command()
     @click.option("--network", required=True,
-                  help="the port's .pt generator checkpoint")
+                  help="a reference EG3D .pkl, which runs in bf16 mixed "
+                       "precision as tgi's does (stage 1 still renders in "
+                       "float32, stage 2 tunes in the bf16 blocks), or the "
+                       "port's .pt checkpoint, which keeps its stored "
+                       "config")
     @click.option("--images", "image_dir", required=True)
     @click.option("--outdir", "out_dir", required=True)
     @click.option("--pose-weights", default=None,
@@ -288,7 +345,7 @@ def main(argv=None):
                            f"drawn from --seed {seed}")
             return bool(path)
 
-        G, gen_params = load_generator(network, device)
+        G, gen_params = load_any_generator(network, device=device)
         pose_params = vgg_params = lpips_head = None
         if require(pose_weights, "--pose-weights"):
             pose_params = convert_torch_state_dict(
@@ -304,6 +361,9 @@ def main(argv=None):
             alex_params, alex_head = (
                 params_from_numpy(t, device) for t in
                 convert_lpips_alex(load_state_dict(lpips_weights)))
+        validate_aux(pose_params, vgg_params, lpips_head, alex_params,
+                     alex_head,
+                     camera_dims=CAMERA_DIMS[camera_mode])
 
         for r in run_pti(image_dir, out_dir, G=G, gen_params=gen_params,
                          pose_params=pose_params, vgg_params=vgg_params,

@@ -18,11 +18,13 @@ re-normalizes the noise buffers. w gets annealed exploration noise in
 the joint phase (w_projector.py:174-188).
 
 ``tgi`` runs the two phases as two ``lax.scan``s over one jitted step;
-here they are two Python loops over :meth:`Projector.step`. ``tgi``'s
-``dispatch_chunk`` (a TPU-relay guard), ``remat_render`` and
-``batch_views`` (batching devices), ``render_fp32`` (the port is fp32)
-and ``canon_sr_max_res`` (a gated fast mode, ROADMAP Queue A item 18)
-have no counterpart. Snapshots fire on the plain step counter.
+here they are two Python loops over :meth:`Projector.step`. Both renders
+of a step run in float32 (``render_fp32``, the reference's
+w_projector.py:189) even for a generator whose ``fused_dtype`` is
+bfloat16, as in ``tgi``. ``tgi``'s ``dispatch_chunk`` (a TPU-relay
+guard), ``remat_render`` and ``batch_views`` (batching devices) and
+``canon_sr_max_res`` (a gated fast mode, ROADMAP Queue A item 18) have
+no counterpart. Snapshots fire on the plain step counter.
 Without an e4e encoder (ROADMAP Queue A item 9) w starts at ``w_avg``,
 as in ``tgi`` without ``--e4e-weights``.
 
@@ -74,6 +76,9 @@ class ProjectorConfig:
     regularize_noise_weight: float = 1e5
     truncation_psi: float = 0.7
     truncation_cutoff: int = 14
+    # The reference forces fp32 renders during projection
+    # (w_projector.py:189); False lets the generator's fused_dtype apply.
+    render_fp32: bool = True
 
     @property
     def cam_lr(self):
@@ -265,7 +270,8 @@ class Projector:
         ws = (state["w"] + w_noise).repeat(1, self.G.cfg.num_ws, 1)
         gen_params = merge_noise(self.base_params, state["noise"])
         render = partial(self.G.synthesis, gen_params, noise_mode="const",
-                         det=False, generator=generator)
+                         det=False, generator=generator,
+                         force_fp32=cfg.render_fp32)
         pred = render(ws, pred_cam, jitter=j_pred, u=u_pred)
         # The canonical view renders the detached latent
         # (w_projector.py:203-205); pose and noise still get gradient.

@@ -3,8 +3,14 @@ target training/triplane.py:18-136).
 
 A frozen config plus a params dict. ``synthesis`` runs ray sampling, the
 StyleGAN2 backbone, the two-pass volume render and the super-resolution
-eagerly on the params' device. float32 only: ``fused_dtype`` and
-``plane_dtype`` other than ``"float32"`` are refused.
+eagerly on the params' device.
+
+Precision as in ``tgi``: ``fused_dtype="bfloat16"`` runs the backbone's
+high-resolution blocks and (with ``sr_num_fp16_res > 0``) the SR in bf16,
+while parameters, styles, the planes the backbone returns and every
+image stay float32; ``force_fp32`` turns it off for one call (stage 1's
+renders). ``plane_dtype="bfloat16"`` rounds the planes to bf16 before the
+render; the sampler still reads them in float32.
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ import torch
 from tgi_torch.nn.mapping import mapping_network_apply, mapping_network_init
 from tgi_torch.nn.superres import (SRConfig, sr_config_from_class_name,
                                    superresolution_apply, superresolution_init)
-from tgi_torch.nn.synthesis import (SynthesisConfig, synthesis_network_apply,
+from tgi_torch.nn.synthesis import (SynthesisConfig, block_dtype,
+                                    synthesis_network_apply,
                                     synthesis_network_init)
 from tgi_torch.render.decoder import osg_decoder_init
 from tgi_torch.render.rays import ray_sampler
@@ -66,25 +73,28 @@ class GeneratorConfig:
     backbone_resolution: int = 256
     plane_channels: int = 32
     n_planes: int = 3
+    sr_num_fp16_res: int = 4
     neural_rendering_resolution: int = 64
     mapping_layers: int = 8
     channel_base: int = 32768
     channel_max: int = 512
-    fused_dtype: str = "float32"
-    plane_dtype: str = "float32"
+    fused_dtype: str = "float32"  # 'bfloat16' for mixed precision
+    plane_dtype: str = "float32"  # the dtype the tri-planes are sampled in
     rendering_kwargs: Any = field(default_factory=default_rendering_kwargs)
 
     def __post_init__(self):
-        if self.fused_dtype != "float32" or self.plane_dtype != "float32":
-            raise NotImplementedError(
-                "tgi_torch runs float32 only (fused_dtype, plane_dtype)")
+        for name in ("fused_dtype", "plane_dtype"):
+            if getattr(self, name) not in ("float32", "bfloat16"):
+                raise ValueError(f"{name}={getattr(self, name)!r}: expected "
+                                 f"'float32' or 'bfloat16'")
 
     @property
     def backbone_cfg(self) -> SynthesisConfig:
         return SynthesisConfig(
             w_dim=self.w_dim, img_resolution=self.backbone_resolution,
             img_channels=self.plane_channels * self.n_planes,
-            channel_base=self.channel_base, channel_max=self.channel_max)
+            channel_base=self.channel_base, channel_max=self.channel_max,
+            fused_dtype=self.fused_dtype)
 
     @property
     def sr_cfg(self) -> SRConfig:
@@ -137,19 +147,22 @@ class TriPlaneGenerator:
             truncation_psi=truncation_psi,
             truncation_cutoff=truncation_cutoff)
 
-    def backbone_planes(self, params, ws, *, noise_mode="const"):
-        """ws -> tri-planes [N, 3, 32, 256, 256] (triplane.py:71-76)."""
+    def backbone_planes(self, params, ws, *, noise_mode="const",
+                        force_fp32=False):
+        """ws -> tri-planes [N, 3, 32, 256, 256], float32
+        (triplane.py:71-76)."""
         cfg = self.cfg
         planes = synthesis_network_apply(params["backbone"], ws,
                                          cfg.backbone_cfg,
-                                         noise_mode=noise_mode)
+                                         noise_mode=noise_mode,
+                                         force_fp32=force_fp32)
         N = planes.shape[0]
         return planes.reshape(N, cfg.n_planes, cfg.plane_channels,
                               planes.shape[-2], planes.shape[-1])
 
     def synthesis(self, params, ws, c, *, neural_rendering_resolution=None,
                   noise_mode="const", det=True, generator=None, planes=None,
-                  sr_max_res=None, jitter=None, u=None):
+                  sr_max_res=None, jitter=None, u=None, force_fp32=False):
         """Full render: ws [N, num_ws, 512], c [N, 25] ->
         {'image', 'image_raw', 'image_depth', 'planes'} (triplane.py:53-90).
 
@@ -158,7 +171,9 @@ class TriPlaneGenerator:
         random draws when ``det`` is False; ``jitter`` and ``u`` give
         them as tensors instead (see ``importance_render``).
         ``sr_max_res`` truncates the SR pyramid (see
-        superresolution_apply).
+        superresolution_apply). ``force_fp32`` renders in float32 whatever
+        ``fused_dtype`` says (``plane_dtype`` still applies, as in
+        ``tgi``).
         """
         cfg = self.cfg
         rk = cfg.rendering_kwargs
@@ -171,19 +186,25 @@ class TriPlaneGenerator:
 
         ray_origins, ray_dirs = ray_sampler(cam2world, intrinsics, res)
         if planes is None:
-            planes = self.backbone_planes(params, ws, noise_mode=noise_mode)
+            planes = self.backbone_planes(params, ws, noise_mode=noise_mode,
+                                          force_fp32=force_fp32)
 
         feature_samples, depth_samples, _ = importance_render(
-            planes, params["decoder"], ray_origins, ray_dirs, rk, det=det,
-            generator=generator, jitter=jitter, u=u)
+            planes.to(getattr(torch, cfg.plane_dtype)), params["decoder"],
+            ray_origins, ray_dirs, rk, det=det, generator=generator,
+            jitter=jitter, u=u)
 
         feature_image = feature_samples.permute(0, 2, 1).reshape(
             N, feature_samples.shape[-1], res, res)
         depth_image = depth_samples.permute(0, 2, 1).reshape(N, 1, res, res)
         rgb_image = feature_image[:, :3]
+        sr_fp16 = cfg.sr_num_fp16_res > 0 and cfg.fused_dtype != "float32"
         sr_image = superresolution_apply(
             params["superresolution"], rgb_image, feature_image, ws,
-            cfg.sr_cfg, sr_antialias=rk.get("sr_antialias", True),
+            cfg.sr_cfg,
+            dtype=block_dtype(cfg.fused_dtype, sr_fp16, force_fp32),
+            conv_clamp=(256 if sr_fp16 else None),
+            sr_antialias=rk.get("sr_antialias", True),
             noise_mode=rk.get("superresolution_noise_mode", "none"),
             max_res=sr_max_res)
         return {"image": sr_image, "image_raw": rgb_image,

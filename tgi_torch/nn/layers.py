@@ -4,7 +4,9 @@
 Each module is an ``*_init(generator, ..., device)`` that returns a dict
 of tensors, keyed as the JAX pytree (and so the reference state_dict),
 plus an ``*_apply(params, ...)``. Equalized learning-rate scaling is
-applied at run time, as in the reference. float32 only.
+applied at run time, as in the reference. Parameters are float32; an
+apply runs in its input's dtype (bfloat16 in the generator's
+mixed-precision blocks).
 
 Random draws use an explicit CPU ``torch.Generator`` and are then moved
 to ``device``, so a seed gives the same weights on every device.
@@ -113,8 +115,19 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
         weight: [C_out, C_in, kh, kw] (shared across batch).
         styles: [N, C_in] modulation.
         noise: optional broadcastable noise added after demodulation.
+
+    The weight, the styles and the demodulation coefficients stay in
+    their own (float32) dtype; only the activations' operands are cast.
+    Where ``x`` is in reduced precision and the conv demodulates, the
+    weight and the styles are first pre-normalized by their inf-norms
+    in that dtype, the reference's fp16 overflow guard
+    (networks_stylegan2.py:54-56).
     """
     out_c, in_c, kh, kw = weight.shape
+    if demodulate and x.dtype != torch.float32:
+        weight = weight * (1 / math.sqrt(in_c * kh * kw) / weight.abs().amax(
+            dim=(1, 2, 3), keepdim=True))
+        styles = styles / styles.abs().amax(dim=1, keepdim=True)
     dcoefs = None
     if demodulate:
         # [N, O]: rsqrt of sum over (I, kh, kw) of (w * s)^2, without the

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
 import torch.nn.functional as F
 
 from tgi_torch.nn.synthesis import synthesis_block_apply, synthesis_block_init
@@ -70,13 +71,16 @@ def bilinear_resize(x, size, antialias=False):
 
 
 def superresolution_apply(params, rgb, x, ws, cfg: SRConfig, *,
+                          dtype=torch.float32, conv_clamp=None,
                           sr_antialias=True, noise_mode="none",
                           max_res=None):
     """rgb: [N,3,r,r] raw render; x: [N,32,r,r] features; ws: [N,num_ws,512].
 
-    Returns the SR image [N, 3, img_resolution, img_resolution], or with
-    ``max_res`` the accumulated rgb of the first block whose output
-    resolution reaches it.
+    Returns the SR image [N, 3, img_resolution, img_resolution] (float32),
+    or with ``max_res`` the accumulated rgb of the first block whose output
+    resolution reaches it. Both blocks run their activations in ``dtype``
+    and clamp at ``conv_clamp``; ``tgi`` clamps at 256 wherever its SR is
+    set to reduced precision, also when a call forces float32.
     """
     ws = ws[:, -1:, :].repeat(1, 3, 1)
     if x.shape[-1] != cfg.input_resolution:
@@ -87,12 +91,12 @@ def superresolution_apply(params, rgb, x, ws, cfg: SRConfig, *,
     in1, _, res1, up1 = cfg.block1
     if max_res is not None and cfg.input_resolution >= max_res:
         return rgb
+    block_kw = dict(conv_clamp=conv_clamp, noise_mode=noise_mode,
+                    dtype=dtype)
     x, rgb = synthesis_block_apply(params["block0"], x, rgb, ws,
-                                   in_channels=in0, up=up0, conv_clamp=None,
-                                   noise_mode=noise_mode)
+                                   in_channels=in0, up=up0, **block_kw)
     if max_res is not None and res0 >= max_res:
         return rgb
     x, rgb = synthesis_block_apply(params["block1"], x, rgb, ws,
-                                   in_channels=in1, up=up1, conv_clamp=None,
-                                   noise_mode=noise_mode)
+                                   in_channels=in1, up=up1, **block_kw)
     return rgb

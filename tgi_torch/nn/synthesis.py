@@ -7,9 +7,13 @@ Behavioral parity targets (networks_stylegan2.py):
   SynthesisBlock    :369-470
   SynthesisNetwork  :474-524
 
-float32 throughout. Noise modes: ``"const"`` (the stored
+Mixed precision as in ``tgi``: with ``fused_dtype="bfloat16"`` the
+blocks at ``fp16_resolution`` and above run their activations in bf16
+(the reference's fp16 blocks), with the weight and style
+pre-normalization and ``conv_clamp``; parameters, styles and the
+accumulated image stay float32. Noise modes: ``"const"`` (the stored
 ``noise_const`` buffers) and ``"none"``; per-draw random noise waits for
-the training and inversion slices.
+a later slice.
 """
 
 from __future__ import annotations
@@ -54,7 +58,9 @@ class SynthesisConfig:
     img_channels: int = 96
     channel_base: int = 32768
     channel_max: int = 512
+    num_fp16_res: int = 4
     conv_clamp: float | None = 256
+    fused_dtype: str = "float32"  # 'bfloat16' enables mixed precision
 
     @property
     def resolutions(self):
@@ -64,6 +70,11 @@ class SynthesisConfig:
     def channels(self):
         return channels_for(self.img_resolution, self.channel_base,
                             self.channel_max)
+
+    @property
+    def fp16_resolution(self):
+        return max(2 ** (int(math.log2(self.img_resolution)) + 1
+                         - self.num_fp16_res), 8)
 
     @property
     def num_ws(self):
@@ -166,18 +177,28 @@ def synthesis_block_init(generator, in_channels, out_channels, w_dim,
     return params
 
 
+def block_dtype(fused_dtype, use_fp16, force_fp32=False):
+    """The dtype a block runs its activations in: ``fused_dtype`` where
+    the block is one of the reduced-precision ones (``use_fp16``) and the
+    call does not force float32."""
+    return (getattr(torch, fused_dtype) if use_fp16 and not force_fp32
+            else torch.float32)
+
+
 def synthesis_block_apply(params, x, img, ws, *, in_channels, conv_clamp=256,
-                          use_noise=True, noise_mode="const", up=2):
-    """ws: [N, num_conv + 1, w_dim]. Returns (x, img).
+                          use_noise=True, noise_mode="const", up=2,
+                          dtype=torch.float32):
+    """ws: [N, num_conv + 1, w_dim]. Returns (x, img): x in ``dtype``
+    (the block's, see ``block_dtype``), img float32.
 
     ``up=1`` is the SR 'NoUp' variant (superresolution.py:158-257)."""
     w_idx = 0
     if in_channels == 0:
-        x = params["const"][None].repeat(ws.shape[0], 1, 1, 1)
+        x = params["const"].to(dtype)[None].repeat(ws.shape[0], 1, 1, 1)
     else:
         x = synthesis_layer_apply(
-            params["conv0"], x, ws[:, w_idx], up=up, use_noise=use_noise,
-            conv_clamp=conv_clamp, noise_mode=noise_mode)
+            params["conv0"], x.to(dtype), ws[:, w_idx], up=up,
+            use_noise=use_noise, conv_clamp=conv_clamp, noise_mode=noise_mode)
         w_idx += 1
     x = synthesis_layer_apply(
         params["conv1"], x, ws[:, w_idx], use_noise=use_noise,
@@ -187,7 +208,7 @@ def synthesis_block_apply(params, x, img, ws, *, in_channels, conv_clamp=256,
     if img is not None and up > 1:
         img = upsample2d(img, RESAMPLE_FILTER)
     y = torgb_layer_apply(params["torgb"], x, ws[:, w_idx],
-                          conv_clamp=conv_clamp)
+                          conv_clamp=conv_clamp).float()
     img = img + y if img is not None else y
     return x, img
 
@@ -208,8 +229,11 @@ def synthesis_network_init(generator, cfg: SynthesisConfig, device="cuda"):
 
 
 def synthesis_network_apply(params, ws, cfg: SynthesisConfig, *,
-                            noise_mode="const"):
-    """ws: [N, num_ws, w_dim] -> img [N, img_channels, R, R] (float32)."""
+                            noise_mode="const", force_fp32=False):
+    """ws: [N, num_ws, w_dim] -> img [N, img_channels, R, R] (float32).
+
+    ``force_fp32`` runs every block in float32 whatever ``fused_dtype``
+    says."""
     channels = cfg.channels
     ws = ws.float()
     x = img = None
@@ -220,6 +244,7 @@ def synthesis_network_apply(params, ws, cfg: SynthesisConfig, *,
         x, img = synthesis_block_apply(
             params[f"b{res}"], x, img, ws[:, w_idx:w_idx + num_conv + 1],
             in_channels=in_ch, conv_clamp=cfg.conv_clamp,
-            noise_mode=noise_mode)
+            noise_mode=noise_mode, dtype=block_dtype(
+                cfg.fused_dtype, res >= cfg.fp16_resolution, force_fp32))
         w_idx += num_conv
     return img

@@ -4,10 +4,15 @@ Plain PyTorch elementwise math: the JAX package left this chain to XLA's
 fusion, so it has no TPU kernel to port. Semantics follow the reference
 op (torch_utils/ops/bias_act.py:54-126): the default gain is the
 activation's variance-preserving gain, and clamping is symmetric.
+
+The chain runs in the input's dtype. As in ``tgi``, whose Python
+constants take the array's dtype, ``alpha`` and ``gain`` are rounded to
+that dtype first (a no-op for float32).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -38,14 +43,20 @@ activation_funcs: dict[str, ActivationSpec] = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
 def bias_act(x: torch.Tensor, b: torch.Tensor | None = None, dim: int = 1,
              act: str = "linear", alpha: float | None = None,
              gain: float | None = None,
              clamp: float | None = None) -> torch.Tensor:
     """Add bias along ``dim``, apply ``act``, scale by ``gain``, clamp."""
     spec = activation_funcs[act]
-    alpha = float(spec.def_alpha if alpha is None else alpha)
-    gain = float(spec.def_gain if gain is None else gain)
+    alpha = _rounded(spec.def_alpha if alpha is None else alpha, x.dtype)
+    gain = _rounded(spec.def_gain if gain is None else gain, x.dtype)
 
     if b is not None:
         assert b.ndim == 1 and 0 <= dim < x.ndim

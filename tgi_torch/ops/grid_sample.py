@@ -574,20 +574,33 @@ class TriplaneSample(torch.autograd.Function):
     backward re-reads the four corners from the planes where the point
     gradient is asked for. A CPU tensor takes the plain versions, a CUDA
     tensor the kernels.
+
+    Reduced-precision planes are sampled as ``tgi``'s TPU route samples
+    them (``grid_sample.py:198-213``, ``:236-300``): cast up to float32
+    here, before the kernel or its plain version, which both take float32
+    only; the features come back in the planes' dtype. The backward casts
+    the feature gradient up to float32 and returns ``d_planes`` in the
+    planes' dtype and ``d_coords`` in float32.
     """
 
     @staticmethod
     def forward(ctx, planes, coords, box_warp):
+        dtype = planes.dtype
+        planes = planes.float()          # keeps a channels-last layout
         planes_cl = planes.permute(0, 1, 3, 4, 2).contiguous()  # no-op if CL
         ctx.save_for_backward(planes_cl, coords)
         ctx.box_warp = box_warp
+        ctx.dtype = dtype
         if planes.device.type == "cuda":
-            return sample_triplanes_cuda(planes, coords, box_warp)
-        return sample_triplanes_plain(planes, coords, box_warp)
+            out = sample_triplanes_cuda(planes, coords, box_warp)
+        else:
+            out = sample_triplanes_plain(planes, coords, box_warp)
+        return out.to(dtype)
 
     @staticmethod
     def backward(ctx, g):
         planes_cl, coords = ctx.saved_tensors
+        g = g.float()
         need_coords = ctx.needs_input_grad[1]
         cuda = g.device.type == "cuda"
         splat = triplane_splat_cuda if cuda else triplane_splat_plain
@@ -609,7 +622,8 @@ class TriplaneSample(torch.autograd.Function):
         else:
             raise ValueError(f"TGI_SPLAT={mode!r}: expected 'pack', 'v1' "
                              f"or 'mxu'")
-        return d_planes.permute(0, 1, 4, 2, 3), d_coords, None
+        return (d_planes.permute(0, 1, 4, 2, 3).to(ctx.dtype), d_coords,
+                None)
 
 
 def sample_triplanes(planes: torch.Tensor, coords: torch.Tensor,
@@ -620,14 +634,15 @@ def sample_triplanes(planes: torch.Tensor, coords: torch.Tensor,
     counterpart here.
 
     Args:
-        planes: ``[N, 3, C, H, W]`` tri-plane features.
-        coords: ``[N, M, 3]`` world coordinates.
+        planes: ``[N, 3, C, H, W]`` tri-plane features, float32 or
+            bfloat16 (sampled in float32).
+        coords: ``[N, M, 3]`` world coordinates, float32.
         box_warp: side length of the [-box/2, box/2] volume.
 
     Returns:
-        ``[N, 3, M, C]`` per-plane bilinear features (zeros outside the
-        box), through :class:`TriplaneSample`: CPU tensors take the plain
-        versions, CUDA tensors the kernels.
+        ``[N, 3, M, C]`` per-plane bilinear features in the planes' dtype
+        (zeros outside the box), through :class:`TriplaneSample`: CPU
+        tensors take the plain versions, CUDA tensors the kernels.
     """
     if planes.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no tri-plane sampler for device {planes.device}")

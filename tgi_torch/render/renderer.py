@@ -27,7 +27,9 @@ def run_model(planes, decoder_params, sample_coordinates, options):
         raise NotImplementedError("density_noise > 0 is not ported yet")
     feats = sample_triplanes(planes, sample_coordinates,
                              box_warp=options["box_warp"])
-    return osg_decoder_apply(decoder_params, feats,
+    # Features come back in the planes' dtype (bf16 under
+    # plane_dtype="bfloat16"); the decoder MLP always runs in float32.
+    return osg_decoder_apply(decoder_params, feats.float(),
                              lr_multiplier=options.get("decoder_lr_mul", 1.0))
 
 
