@@ -96,6 +96,20 @@ kernels in both stages, one bf16 tuning step's gradients through the
 kernels against the plain sampler, and a bf16 render and tuning step
 timed beside float32 ones.
 
+Phase 12 drives the closed-loop self-inversion gate and the rest of
+``run_pti``'s evaluation path at full width: on the gate's generator
+(seed 2, whose target is not black), the aux nets bootstrapped on a
+pseudo-dataset the generator renders (64 images, 100 pose-net and 50
+VGG steps), then ``self_inversion_eval`` (20 + 60 steps, the
+bootstrapped e4e start, the 0.06 early-stop probe, the quat camera lr /
+30 as ``bench.py`` runs its gate with bootstrapped nets), held to the
+CPU gate test's assertions, final MSE at most 1.05 x the pivot's
+included, with both bootstrap losses falling; e4e
+(IR-SE50, 256²) and ArcFace (112²) on the card against their CPU run;
+and ``run_pti`` with the e4e start and ``--eval`` from seeded ``.pt``
+files (20 + 10 steps), its metrics checked; the gather and splat
+launches of each part counted.
+
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the tgi_torch package beside it, the
@@ -377,10 +391,11 @@ def phase_sorted_vs_plain(torch, gs):
 
 
 def full_width_generator(torch):
-    from tgi_torch.models.generator import GeneratorConfig, TriPlaneGenerator
-    G = TriPlaneGenerator(GeneratorConfig(neural_rendering_resolution=128))
+    """The gate's generator (``selfinv_gate.full_width_generator``):
+    ``ffhqrebalanced512-128`` in fp32, weights from seed 0."""
+    from tgi_torch.scripts import selfinv_gate
     t0 = time.perf_counter()
-    params = G.init(torch.Generator().manual_seed(0), device=DEVICE)
+    G, params = selfinv_gate.full_width_generator(DEVICE)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
     log(f"full-width generator: {n} parameters drawn in "
@@ -1447,6 +1462,260 @@ def phase_pkl_bf16(torch, gs, G, params, nets, tmp):
             "render_ms": render_ms, "render_psnr": psnr}
 
 
+# Phase 12: the self-inversion gate with bootstrapped aux nets, cut to
+# 64 pseudo-dataset images, 100 pose and 50 VGG steps, and 20 + 60
+# inversion steps (10 of them camera-only preheat). Stage 2's raw-image
+# term first pulls the 512² image off the pivot: on an H100 the final
+# MSE stood at 2.8-2.9 x the pivot's after 10-20 tuning steps, 0.91 x
+# after 30 and 0.54 x after 60 (PERF.md §6, PR 13 call 12).
+GATE_BOOTSTRAP = dict(num_images=64, pose_steps=100, vgg_steps=50)
+GATE_STAGE1, GATE_STAGE2, GATE_PREHEAT, GATE_TRACE = 20, 60, 10, 10
+# e4e (IR-SE50, 256²) and ArcFace (112²) on the card against their CPU
+# run: max|Δ| <= FACE_TOL * max|CPU|. With their BatchNorm statistics
+# calibrated (``_calibrate_trunk``) each net's float32 output stands
+# ~1e-6 of its largest value from its float64 one on the CPU, so two
+# float32 runs that sum in other orders part by ~1e-5 at most.
+FACE_TOL = 1e-4
+
+
+def _falls(losses, k=10):
+    """Mean of the last k losses below the mean of the first k."""
+    k = min(k, len(losses) // 2)
+    return sum(losses[-k:]) / k < sum(losses[:k]) / k
+
+
+def phase_selfinv_gate(torch, gs):
+    """The gate through ``tgi_torch.scripts.selfinv_gate.run_gate`` at full
+    width, on the gate's own generator (``selfinv_gate.GENERATOR_SEED``:
+    seed 0's target is black, and no metric of the gate moves with w or
+    the camera there), the pose ResNet-34, VGG16 and AlexNet-LPIPS from
+    seeds: the aux nets bootstrapped on a pseudo-dataset the generator
+    renders (GATE_BOOTSTRAP), then ``self_inversion_eval`` with the
+    bootstrapped e4e start, the pose net aimed 3 degrees off, the quat
+    camera lr / 30 (bench.py's harness adjustment for bootstrapped nets,
+    not the product's), the production 0.06 early-stop probe and the
+    quality traced every GATE_TRACE steps. Checks that both bootstrap
+    losses fall, the CPU gate test's assertions
+    (tests/test_torch_selfinv.py::test_gate_end_to_end), and the
+    kernels' launches in each part, every count set to 0 before the
+    run."""
+    from tgi_torch.scripts import selfinv_gate
+    G, params = selfinv_gate.full_width_generator(
+        DEVICE, seed=selfinv_gate.GENERATOR_SEED)
+    zero_counts(gs)
+    out = selfinv_gate.run_gate(G, params, device=DEVICE, stage1=GATE_STAGE1,
+                                stage2=GATE_STAGE2, preheat=GATE_PREHEAT,
+                                trace_every=GATE_TRACE, log=log,
+                                **GATE_BOOTSTRAP)
+    rep, q, launched = out["bootstrap"], out["gate"], out["launches"]
+    log(f"selfinv gate: bootstrap {out['seconds']['bootstrap']:.1f} s "
+        f"(dataset {rep['dataset_s']:.1f}, pose {rep['pose_train_s']:.1f}, "
+        f"vgg {rep['vgg_train_s']:.1f}); pose loss "
+        f"{rep['pose_losses'][0]:.4f} -> {rep['pose_losses'][-1]:.4f}, val "
+        f"rot {rep['pose_val_rot_deg']:.2f} deg; vgg loss "
+        f"{rep['vgg_losses'][0]:.4f} -> {rep['vgg_losses'][-1]:.4f}; gate "
+        f"{out['seconds']['gate']:.1f} s (stage 1 {q['stage1_s']:.1f}, "
+        f"stage 2 {q['stage2_s']:.1f}, probe {q['es_s']:.1f}); metrics "
+        f"{ {k: v for k, v in q.items() if not k.endswith('_s')} }; "
+        f"launches {launched}")
+    check(_falls(rep["pose_losses"]) and _falls(rep["vgg_losses"]),
+          "a bootstrap loss did not fall: pose "
+          f"{rep['pose_losses'][:3]}...{rep['pose_losses'][-3:]}, vgg "
+          f"{rep['vgg_losses'][:3]}...{rep['vgg_losses'][-3:]}")
+    check(all(math.isfinite(v) for k, v in q.items()
+              if not k.endswith("_trace")), f"non-finite gate metric: {q}")
+    check(q["stage1_final_loss"] < q["stage1_first_loss"],
+          "the gate's stage-1 loss did not fall")
+    ratio = q["final_mse"] / q["pivot_mse"]
+    log(f"selfinv gate: final / pivot MSE {ratio:.3g} (stage 2 loss "
+        f"{q['stage2_first_loss']:.4g} -> {q['stage2_final_loss']:.4g})")
+    check(ratio <= 1.05, f"stage 2 left the final MSE at {ratio:.3g} x the "
+          "pivot's")
+    check(q["pti_steps"] <= GATE_STAGE2 and q["es_threshold"] == 0.06
+          and 0 <= q["es_steps"] <= GATE_STAGE2, f"steps {q}")
+    check(abs(q["init_pose_err_deg"] - 3.0) < 0.1,
+          f"the aimed pose net starts {q['init_pose_err_deg']} deg off")
+    renders = GATE_BOOTSTRAP["num_images"] // 8
+    es, s1, s2 = q["es_steps"], GATE_STAGE1, GATE_STAGE2
+    es_renders = es + (es < s2)      # the render that stopped it
+    qconv = len(q["quality_trace"])
+    want = {"bootstrap": {"triplane_gather": 2 * renders,
+                          "triplane_splat": 0, "triplane_splat_sorted": 0},
+            # target; stage 1; stage 2; its quality trace; the probe;
+            # pivot, final and probe quality.
+            "gate": {"triplane_gather": 2 + 4 * s1 + 2 * s2 + 2 * qconv
+                     + 2 * es_renders + 6,
+                     "triplane_splat": 4 * s1 + 2 * s2 + 2 * es,
+                     "triplane_splat_sorted": 0}}
+    check(launched == want, f"gate launches {launched}, expected {want}")
+    return out
+
+
+def _bn_stats(bn, y):
+    """BatchNorm params whose running statistics are those of ``y``."""
+    dims = (0, 2, 3) if y.dim() == 4 else (0,)
+    return {**bn, "running_mean": y.mean(dim=dims),
+            "running_var": y.var(dim=dims, unbiased=False).clamp(min=1e-5)}
+
+
+def _calibrate_trunk(torch, params, x):
+    """An IR-SE50 trunk's BatchNorm statistics set, block by block, from
+    the activations the batch ``x`` gives them: the O(1) operating point
+    of a trained net. With identity statistics a random trunk's
+    activations grow to ~1e4-1e6 and its float32 output parts from its
+    float64 one by ~5e-3 of its largest value on the CPU (ArcFace, seed
+    12), so two float32 runs cannot be compared."""
+    from tgi_torch.models import irse
+    il = dict(params["input_layer"])
+    y = irse.conv(x, il["0"]["weight"], padding=1)
+    il["1"] = _bn_stats(il["1"], y)
+    y = irse.prelu(il["2"], irse.batchnorm(il["1"], y))
+    body = {}
+    for i, (_, _, stride) in enumerate(irse.get_blocks(50)):
+        p = dict(params["body"][str(i)])
+        r = dict(p["res_layer"])
+        r["0"] = _bn_stats(r["0"], y)
+        z = irse.conv(irse.batchnorm(r["0"], y), r["1"]["weight"], padding=1)
+        z = irse.conv(irse.prelu(r["2"], z), r["3"]["weight"], stride=stride,
+                      padding=1)
+        r["4"] = _bn_stats(r["4"], z)
+        p["res_layer"] = r
+        if "shortcut_layer" in p:
+            sc = dict(p["shortcut_layer"])
+            sc["1"] = _bn_stats(sc["1"], irse.conv(y, sc["0"]["weight"],
+                                                   stride=stride))
+            p["shortcut_layer"] = sc
+        y = irse.bottleneck_apply(p, y, stride, True)
+        body[str(i)] = p
+    return {**params, "input_layer": il, "body": body}, y
+
+
+def _face_inputs(torch):
+    """Full-width e4e and ArcFace weights from seed 12, their BatchNorm
+    statistics calibrated on four seeded images (``_calibrate_trunk``;
+    ArcFace's two output BatchNorms too), e4e's first code's linear
+    scaled so its codes on a grey image reach 0.5 (a trained encoder's
+    start lies near w_avg), and their inputs from seed 13: (e4e CPU
+    params, ArcFace CPU params, 256² [0, 255] input, 112² input)."""
+    from tgi_torch.models.arcface import arcface_init
+    from tgi_torch.models.e4e import e4e_encode_w0, e4e_init
+    from tgi_torch.models.irse import batchnorm
+    gen = torch.Generator().manual_seed(12)
+    enc = e4e_init(gen, device="cpu")
+    arc = arcface_init(gen, device="cpu")
+    with torch.no_grad():
+        enc, _ = _calibrate_trunk(
+            torch, enc, torch.rand((4, 3, 256, 256), generator=gen) * 255)
+        arc, t = _calibrate_trunk(
+            torch, arc, torch.randn((4, 3, 112, 112), generator=gen))
+        ol = dict(arc["output_layer"])
+        ol["0"] = _bn_stats(ol["0"], t)
+        z = (batchnorm(ol["0"], t).reshape(4, -1) @ ol["3"]["weight"].T
+             + ol["3"]["bias"])
+        ol["4"] = _bn_stats(ol["4"], z)
+        arc["output_layer"] = ol
+        w0 = e4e_encode_w0(enc, torch.full((1, 3, 256, 256), 128.0))
+    enc["styles"]["0"]["linear"]["weight"] *= 0.5 / float(w0.abs().max())
+    gen = torch.Generator().manual_seed(13)
+    return (enc, arc, torch.rand((1, 3, 256, 256), generator=gen) * 255,
+            torch.randn((1, 3, 112, 112), generator=gen))
+
+
+def phase_faces_vs_cpu(torch):
+    """e4e's codes (``e4e_apply``, 256²) and ArcFace's embedding (112²) on
+    the card against their CPU run on the same weights, within FACE_TOL
+    of the largest CPU value. Returns the CPU weights and the errors."""
+    from tgi_torch.models.arcface import arcface_apply
+    from tgi_torch.models.e4e import e4e_apply
+    enc, arc, x_e, x_a = _face_inputs(torch)
+    errs = {}
+    for name, fn, p, x in (("e4e", e4e_apply, enc, x_e),
+                           ("arcface", arcface_apply, arc, x_a)):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = fn(p, x)
+            t1 = time.perf_counter()
+            got = fn(_to(p, DEVICE), x.to(DEVICE)).cpu()
+        scale = float(want.abs().max())
+        errs[name] = float((got - want).abs().max()) / scale
+        log(f"{name} on the card vs the CPU: shape {tuple(got.shape)}, "
+            f"max|Δ| / max|CPU| {errs[name]:.3g} (CPU {t1 - t0:.1f} s)")
+        check(bool(torch.isfinite(got).all()) and errs[name] <= FACE_TOL,
+              f"{name} on the card parts from the CPU by {errs[name]} of "
+              f"its largest value > {FACE_TOL}")
+    return enc, arc, errs
+
+
+def phase_run_pti_eval(torch, gs, G, params, enc, arc, tmp):
+    """``run_pti`` with the e4e start and ``--eval``, from seeded ``.pt``
+    files read and checked as the command line reads and checks them
+    (``load_e4e_weights``, ``load_arcface_weights``, ``validate_aux`` at
+    full width; the function is called, so the run needs no click): a
+    512² target rendered from seed 2's latent, saved as ``.npy`` (read
+    without Pillow), 20 projection steps (camera only) and up to 10
+    tuning steps under the production 0.06 early stop; checks the
+    metrics it writes and the launches, every count set to 0 before the
+    run."""
+    import numpy as np
+    from tgi_torch.apps import run_pti as app
+    img, _ = stage1_target(torch, G, params)
+    imgs, out = os.path.join(tmp, "eval_images"), os.path.join(tmp, "eval")
+    os.makedirs(imgs)
+    np.save(os.path.join(imgs, "face.npy"), img[0].cpu().numpy())
+    t0 = time.perf_counter()
+    torch.save({"state_dict": {f"encoder.{k}": v
+                               for k, v in _named_leaves(enc)},
+                "latent_avg": torch.zeros(18, 512)},
+               os.path.join(tmp, "e4e.pt"))
+    torch.save(dict(_named_leaves(arc)), os.path.join(tmp, "arcface.pt"))
+    t1 = time.perf_counter()
+    e4e_p, _ = app.load_e4e_weights(os.path.join(tmp, "e4e.pt"), DEVICE)
+    arc_p = app.load_arcface_weights(os.path.join(tmp, "arcface.pt"),
+                                     DEVICE)
+    app.validate_aux(e4e_params=e4e_p, arcface_params=arc_p)
+    torch.cuda.synchronize()
+    mib = os.path.getsize(os.path.join(tmp, "e4e.pt")) / 2 ** 20
+    log(f"run_pti --eval: e4e.pt {mib:.0f} MiB and arcface.pt written in "
+        f"{t1 - t0:.1f} s, read and checked at full width in "
+        f"{time.perf_counter() - t1:.1f} s")
+    try:
+        import PIL  # noqa: F401
+        png_renders = 1     # the pivot grid; the final render is eval's
+    except ImportError:
+        png_renders = 0
+    zero_counts(gs)
+    t0 = time.perf_counter()
+    res = app.run_pti(imgs, out, G=G, gen_params=params, e4e_params=e4e_p,
+                      arcface_params=arc_p, do_evaluation=True,
+                      first_inv_steps=STAGE1_STEPS // 3,
+                      max_pti_steps=PTI_STEPS, seed=3, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts(gs)
+    entry = res[0]
+    log(f"run_pti --e4e-weights --arcface-weights --eval: {wall:.1f} s, "
+        f"entry {entry}, launches {launched}")
+    with open(os.path.join(out, "facemetrics.txt")) as f:
+        written = json.load(f)
+    check(written == entry, "facemetrics.txt is not the results entry")
+    check(all(math.isfinite(entry[k]) for k in
+              ("mse", "lpips", "ms_ssim", "id_similarity", "final_lpips")),
+          f"non-finite metric {entry}")
+    check(0 <= entry["ms_ssim"] <= 1 and -1 <= entry["id_similarity"] <= 1,
+          f"a metric out of its range: {entry}")
+    # run_pti tunes with the production 0.06 early stop: s2 updates, and
+    # one more render when the stop fired before PTI_STEPS.
+    s1, s2 = STAGE1_STEPS // 3, entry["pti_steps"]
+    want = {"triplane_gather": 4 * s1 + 2 * (s2 + (s2 < PTI_STEPS) + 1
+                                             + png_renders),
+            "triplane_splat": 4 * s1 + 2 * s2,
+            "triplane_splat_sorted": 0, "triplane_splat_keys": 0,
+            "triplane_splat_offsets": 0}
+    check(launched == want, f"run_pti --eval launches {launched}, expected "
+          f"{want}")
+    return {"launches": launched, "wall": wall, "entry": entry}
+
+
 def phase_forward_repeat(torch, G, params, st):
     """Which of stage 1's inputs and forwards repeat their bits when run
     twice: the target render, the w statistics of 5000 latents, and one
@@ -2150,6 +2419,10 @@ def main():
         phase_route_spread(runs)
         phase_forward_repeat(torch, G, params, st1)
         pkl = phase_pkl_bf16(torch, gs, G, params, nets, tmp)
+        gate = phase_selfinv_gate(torch, gs)
+        enc, arc, face_errs = phase_faces_vs_cpu(torch)
+        pti_eval = phase_run_pti_eval(torch, gs, G, params, enc, arc, tmp)
+        del enc, arc
     gather_times = phase_times(torch, gs, G, params, bw)
     _, seen = phase_step_times(torch, gs, params, st)
     splat_times = phase_splat_times(torch, gs, seen, bw)
@@ -2197,6 +2470,12 @@ def main():
                              "run_pti_pkl_bf16_stage1": pkl["stage1"][
                                  "triplane_gather"],
                              "run_pti_pkl_bf16_stage2": pkl["stage2"][
+                                 "triplane_gather"],
+                             "selfinv_bootstrap": gate["launches"][
+                                 "bootstrap"]["triplane_gather"],
+                             "selfinv_gate": gate["launches"]["gate"][
+                                 "triplane_gather"],
+                             "run_pti_eval": pti_eval["launches"][
                                  "triplane_gather"]},
         "max_abs_err": gather_err, **gather_times}, {
         "name": "triplane_splat", "route": "cuda",
@@ -2215,6 +2494,10 @@ def main():
                              "run_pti_pkl_bf16_stage1": pkl["stage1"][
                                  "triplane_splat"],
                              "run_pti_pkl_bf16_stage2": pkl["stage2"][
+                                 "triplane_splat"],
+                             "selfinv_gate": gate["launches"]["gate"][
+                                 "triplane_splat"],
+                             "run_pti_eval": pti_eval["launches"][
                                  "triplane_splat"]},
         "max_abs_err": splat_err, "max_rel_err": splat_rel,
         **splat_times, "check_shape_c16": small_splat}, {
@@ -2227,6 +2510,8 @@ def main():
         "launches_by_path": {"run_pti_stage1": mxu["stage1"][
                                  "triplane_splat_sorted"],
                              "run_pti_stage2": mxu["stage2"][
+                                 "triplane_splat_sorted"],
+                             "selfinv_gate": gate["launches"]["gate"][
                                  "triplane_splat_sorted"]},
         "max_abs_err": sorted_err, "max_rel_err": sorted_rel,
         **sorted_times}, *bench_entries],
@@ -2237,7 +2522,15 @@ def main():
                      "render_ms_host": pkl["render_ms"],
                      "render_psnr_bf16_vs_fp32": pkl["render_psnr"],
                      "grad_norm_err_kernels_vs_plain": pkl["grad_worst"],
-                     "invert_one_wall_s": pkl["wall"]}}),
+                     "invert_one_wall_s": pkl["wall"]},
+        "selfinv_gate": {"seconds": gate["seconds"],
+                         "bootstrap_pose_val_rot_deg": gate["bootstrap"][
+                             "pose_val_rot_deg"],
+                         "metrics": {k: v for k, v in gate["gate"].items()
+                                     if not k.endswith("_trace")}},
+        "face_nets_card_vs_cpu_rel_err": face_errs,
+        "run_pti_eval": {"wall_s": pti_eval["wall"],
+                         "metrics": pti_eval["entry"]}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

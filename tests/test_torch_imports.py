@@ -77,3 +77,15 @@ def test_scan_covers_the_stage2_modules():
             "tgi_torch.models.alexnet", "tgi_torch.utils.image",
             "tgi_torch.io.pickle_import", "tgi_torch.io.validate"} <= set(
                 _modules())
+
+
+def test_scan_covers_the_gate_modules():
+    """The scans above reach every module of the e4e / --eval / gate
+    slice."""
+    assert {"tgi_torch.models.irse", "tgi_torch.models.e4e",
+            "tgi_torch.models.arcface", "tgi_torch.losses.id_loss",
+            "tgi_torch.metrics", "tgi_torch.metrics.msssim",
+            "tgi_torch.apps.pose_pipeline", "tgi_torch.invert",
+            "tgi_torch.invert.bootstrap", "tgi_torch.invert.selfinv",
+            "tgi_torch.scripts.selfinv_gate",
+            "tgi_torch.scripts.selfinv_probe"} <= set(_modules())

@@ -87,7 +87,7 @@ def test_run_pti_stage2_from_saved_pivots(setup, tmp_path):
     assert np.load(out / "face_ws.npy").shape == saved.shape
 
 
-@pytest.mark.parametrize("flag", ["gen_video", "gen_mesh", "do_evaluation",
+@pytest.mark.parametrize("flag", ["gen_video", "gen_mesh", "visualize_opt",
                                   "use_locality_reg", "tensorboard",
                                   "use_wandb"])
 def test_run_pti_refuses_what_is_not_ported(setup, tmp_path, flag):

@@ -148,12 +148,16 @@ def test_run_pti_cli_refuses_a_missing_weight_file(setup, tmp_path):
     with pytest.raises(SystemExit) as e:     # absent, and no random init
         app.main(args)
     assert e.value.code != 0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        app.main(args + ["--e4e-weights", str(net)])
+    with pytest.raises(SystemExit) as e:     # a missing e4e file
+        app.main(args + ["--allow-random-init", "--e4e-weights",
+                         str(tmp_path / "none.pt")])
+    assert e.value.code != 0
+    with pytest.raises(ValueError, match="e4e encoder"):  # a wrong one
+        app.main(args + ["--allow-random-init", "--e4e-weights", str(net)])
 
 
 @pytest.mark.parametrize("kw,item", [({"visualize_opt": True}, "item 7"),
-                                     ({"e4e_params": {}}, "item 9")])
+                                     ({"batch": 2}, "item 18")])
 def test_run_pti_refuses_stage1_parts_not_ported(setup, tmp_path, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         app.run_pti(str(tmp_path), str(tmp_path), G=setup["gt"],

@@ -193,7 +193,12 @@ def assert_updates_match(tuned, want, start, steps, grads, lr=3e-4,
     gradient bound), so an element is sure where
     |g| ≥ 2 · (2 · D + 2⁻⁷ · max|g_ref|): the port's gradient there is
     within half of the reference's and of the same sign. At least ten
-    leaves must have sure elements."""
+    leaves must have sure elements.
+
+    An element whose float32 spacing at its start is not below
+    ``lr / 4`` (a BatchNorm variance of ~1e4 under lr 1e-4) cannot take
+    Adam's step: its error counts beyond twice that spacing, and it need
+    not move. O(1) weights have no such element."""
     start = dict(leaves_with_paths(start))
     got = dict(leaves_with_paths(tuned))
     hist = [dict(leaves_with_paths(g)) for g in grads]
@@ -203,7 +208,14 @@ def assert_updates_match(tuned, want, start, steps, grads, lr=3e-4,
     for path, w in leaves_with_paths(want):
         d_want = np.asarray(w) - np.asarray(start[path])
         d_got = got[path].numpy() - np.asarray(start[path])
+        # Float32 rounds a stored parameter to its spacing: an element of
+        # a large leaf (a BatchNorm variance of ~1e4) whose spacing is not
+        # below lr / 4 moves in those steps or not at all, so its error is
+        # counted beyond two of them. O(1) weights have none such.
+        ulp = 2 * np.spacing(np.abs(np.asarray(start[path], np.float32)))
+        movable = ulp < lr / 4
         err = np.abs(d_got - d_want)
+        err = np.where(movable, err, np.maximum(err - ulp, 0))
         assert err.max() <= 2 * steps * lr, (path, err.max())
         sure = np.ones(d_want.shape, bool)
         live = np.ones(d_want.shape, bool)
@@ -219,9 +231,9 @@ def assert_updates_match(tuned, want, start, steps, grads, lr=3e-4,
         assert (err[sure] <= 2e-2 * steps * lr).all(), (path,
                                                         err[sure].max())
         least = lr / 4 if steps <= 2 else 0
-        assert (np.abs(d_got[sure & live]) > least).all(), path
+        assert (np.abs(d_got[sure & live & movable]) > least).all(), path
         moved += int(np.abs(d_want).max() > 0)
-        held += int((sure & live).any())
+        held += int((sure & live & movable).any())
     assert moved > 10 and held > 10, (moved, held)
 
 

@@ -9,9 +9,15 @@ training/coaches/single_id_coach.py:25-117. Per image:
   stage 2  pivotal tuning of the generator (``tgi_torch.invert.coach``).
 
 With ``use_last_w_pivots`` and both pivot files in the output directory,
-stage 1 is skipped and the pivots are reloaded (base_coach.py:69-77). It
-writes ``{name}_G.pt`` (the tuned generator), ``{name}.png`` and
-``{name}_pivot.png`` (where Pillow is installed) and ``results.json``.
+stage 1 is skipped and the pivots are reloaded (base_coach.py:69-77).
+With an e4e encoder, stage 1 starts from ``w_avg`` plus its output for the
+target (w_projector.py:99-115). It writes ``{name}_G.pt`` (the tuned
+generator), ``{name}.png`` and ``{name}_pivot.png`` (where Pillow is
+installed), with ``do_evaluation`` ``{name}metrics.txt`` (MSE, LPIPS,
+MS-SSIM and, with ArcFace weights, the ID similarity;
+single_id_coach.py:87-106), and ``results.json``. Images are PNG or JPEG
+files, or ``.npy`` arrays in [-1, 1] where Pillow is absent
+(``tgi_torch.utils.image.load_image``).
 
 The generator comes from a reference EG3D ``.pkl`` (read by
 ``tgi_torch.io.pickle_import``, no code from the pickle runs) or from the
@@ -21,11 +27,10 @@ float32 (``ProjectorConfig.render_fp32``) and stage 2 tunes in the
 generator's bf16 blocks. A ``.pt`` keeps the config stored with it.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: the e4e start of stage 1 and its snapshots (ROADMAP Queue A
-items 9 and 7), orbit videos, meshes and metrics (items 9, 11, 15), the
-locality regulariser (item 8), batched inversion (item 18), and
-tensorboard and wandb (item 9). ``click`` and ``PIL`` are imported only
-where they are used.
+skipped: stage 1's snapshots (ROADMAP Queue A item 7), orbit videos and
+meshes (item 11), the locality regulariser (item 8), batched inversion
+(item 18), and tensorboard and wandb (item 9). ``click`` and ``PIL`` are
+imported only where they are used.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ def _not_ported(what, item):
 
 
 def list_images(directory):
-    exts = (".png", ".jpg", ".jpeg")
+    exts = (".png", ".jpg", ".jpeg", ".npy")
     return sorted(os.path.join(directory, f) for f in os.listdir(directory)
                   if f.lower().endswith(exts))
 
@@ -80,9 +85,30 @@ def load_any_generator(path, fused_dtype="bfloat16", device=None):
     return TriPlaneGenerator(cfg), data["params"]
 
 
+def evaluate_reconstruction(gen_img, real_img, lpips_loss, arcface_params):
+    """Per-image MSE / LPIPS / MS-SSIM / ID (single_id_coach.py:87-106);
+    images [1, 3, R, R] in [-1, 1]. The ID similarity needs
+    ``arcface_params``."""
+    from tgi_torch.metrics import ms_ssim
+    with torch.no_grad():
+        out = {
+            "mse": float(torch.mean(torch.square(gen_img - real_img))),
+            "lpips": float(lpips_loss.from_unit(gen_img, real_img).sum()),
+            "ms_ssim": float(ms_ssim((gen_img + 1) / 2,
+                                     (real_img + 1) / 2).mean()),
+        }
+        if arcface_params is not None:
+            from tgi_torch.losses.id_loss import id_loss
+            from tgi_torch.models.arcface import arcface_apply
+            out["id_similarity"] = 1.0 - float(id_loss(
+                lambda x: arcface_apply(arcface_params, x), gen_img,
+                real_img))
+    return out
+
+
 def invert_one(name, img, *, G, gen_params, coach, out_dir, projector=None,
                target_255=None, use_last_w_pivots=True, save_pivot=True,
-               generator=None):
+               generator=None, evaluate=None):
     """Both stages for one target ``img`` ([1, 3, R, R] in [-1, 1], on the
     generator's device) named ``name``.
 
@@ -91,7 +117,9 @@ def invert_one(name, img, *, G, gen_params, coach, out_dir, projector=None,
     ``target_255`` ([1, 3, 256, 256] in [0, 255], the pose net's and
     LPIPS's input), with ``img`` as the warping loss's target, and the
     pivots it finds are written as ``tgi`` writes them. The draws of both
-    stages come from ``generator``.
+    stages come from ``generator``. ``evaluate(final, img) -> dict`` (see
+    :func:`evaluate_reconstruction`) adds its metrics to the entry, which
+    is then also written to ``{name}metrics.txt``.
 
     Returns (results entry, tuned params, the coach's info dict, with the
     projection's per-step metrics under ``"projection"`` when stage 1
@@ -119,14 +147,17 @@ def invert_one(name, img, *, G, gen_params, coach, out_dir, projector=None,
     if projection is not None:
         info["projection"] = projection
 
-    if importlib.util.find_spec("PIL") is not None:
-        from tgi_torch.utils.image import save_image_grid
-        with torch.no_grad():
+    pil = importlib.util.find_spec("PIL") is not None
+    final = None
+    with torch.no_grad():
+        if pil or evaluate is not None:
+            final = G.synthesis(tuned, ws, cam, det=True)["image"].float()
+        if pil:
+            from tgi_torch.utils.image import save_image_grid
             if save_pivot:
                 pivot = G.synthesis(gen_params, ws, cam, det=True)["image"]
                 save_image_grid(os.path.join(out_dir, f"{name}_pivot.png"),
-                                torch.cat([img, pivot]))
-            final = G.synthesis(tuned, ws, cam, det=True)["image"]
+                                torch.cat([img, pivot.float()]))
             save_image_grid(os.path.join(out_dir, f"{name}.png"),
                             torch.cat([img, final]))
     save_checkpoint(os.path.join(out_dir, f"{name}_G.pt"), tuned,
@@ -134,11 +165,16 @@ def invert_one(name, img, *, G, gen_params, coach, out_dir, projector=None,
     entry = {"image": name, "pti_steps": int(info["steps"]),
              "final_lpips": float(info["final_lpips"]),
              "sec": round(time.time() - t0, 2)}
+    if evaluate is not None:
+        entry.update(evaluate(final, img))
+        with open(os.path.join(out_dir, f"{name}metrics.txt"), "w") as f:
+            json.dump(entry, f, indent=1)
     return entry, tuned, info
 
 
 def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
             vgg_params=None, lpips_head=None, e4e_params=None,
+            arcface_params=None,
             alex_params=None, alex_head=None, lpips_type="alex",
             use_locality_reg=False, camera_mode="quat", first_inv_steps=400,
             max_pti_steps=400, gen_video=False, gen_mesh=False,
@@ -156,6 +192,13 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
     ``device``; each absent one is drawn at full width from a CPU
     ``torch.Generator`` seeded with ``seed``. The draws of both stages come
     from a ``torch.Generator`` on ``device`` seeded with ``seed``.
+
+    ``e4e_params`` (``models/e4e.py``'s tree) starts stage 1 at ``w_avg``
+    plus the encoder's first code for the target; its ``latent_avg`` is
+    not used, as pSp2.forward never adds it (e4e/psp.py:47-64).
+    ``do_evaluation`` writes each image's metrics
+    (:func:`evaluate_reconstruction`), the ID similarity with
+    ``arcface_params``.
     """
     from tgi_torch.invert.coach import CoachConfig, PTICoach
     from tgi_torch.invert.projector import Projector, ProjectorConfig
@@ -165,11 +208,8 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
     from tgi_torch.utils.image import load_image
 
     device = device or default_device()
-    for flag, what, item in ((e4e_params is not None,
-                              "the e4e start of stage 1 (models/e4e.py)", 9),
-                             (gen_video, "gen_video (orbit videos)", 11),
+    for flag, what, item in ((gen_video, "gen_video (orbit videos)", 11),
                              (gen_mesh, "gen_mesh (apps/shape.py)", 11),
-                             (do_evaluation, "do_evaluation (metrics)", 9),
                              (use_locality_reg, "losses/locality.py", 8),
                              (visualize_opt,
                               "visualize_opt (utils/opt_viz.py)", 7),
@@ -188,14 +228,26 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
         vgg_params = vgg16_init(weights, device)
     if lpips_head is None:
         lpips_head = lpips_head_init(weights, device)
+    e4e_encode = None
+    if e4e_params is not None:
+        from tgi_torch.models.e4e import e4e_encode_w0
+
+        def e4e_encode(target_255):
+            return e4e_encode_w0(e4e_params, target_255)
+
     projector = Projector(G, gen_params, vgg_params, lpips_head, pose_params,
                           ProjectorConfig(num_steps=first_inv_steps,
-                                          camera_mode=camera_mode))
+                                          camera_mode=camera_mode),
+                          e4e_encode=e4e_encode)
     lp = make_lpips(lpips_type, vgg_params=vgg_params, vgg_head=lpips_head,
                     alex_params=alex_params, alex_head=alex_head,
                     generator=weights, device=device)
     coach = PTICoach(G, lp, CoachConfig(max_pti_steps=max_pti_steps))
     generator = torch.Generator(device=device).manual_seed(seed)
+    evaluate = None
+    if do_evaluation:
+        def evaluate(final, img):
+            return evaluate_reconstruction(final, img, lp, arcface_params)
 
     results = []
     for path in list_images(image_dir):
@@ -211,7 +263,7 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
             out_dir=out_dir, projector=projector,
             target_255=target_255.to(device),
             use_last_w_pivots=use_last_w_pivots, save_pivot=save_pivot,
-            generator=generator)
+            generator=generator, evaluate=evaluate)
         results.append(entry)
     with open(os.path.join(out_dir, "results.json"), "w") as f:
         json.dump(results, f, indent=1)
@@ -225,18 +277,39 @@ def load_state_dict(path):
     return sd.get("state_dict", sd)
 
 
+def load_e4e_weights(path, device="cpu"):
+    """An e4e/pSp checkpoint in any published layout (see
+    ``models/e4e.py::convert_psp_checkpoint``) -> (params, latent_avg or
+    None) on ``device``, unvalidated (:func:`validate_aux` checks it).
+    Read with ``weights_only=True``: the whole checkpoint, so that
+    ``latent_avg`` beside ``state_dict`` is found."""
+    from tgi_torch.models.e4e import convert_psp_checkpoint
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return convert_psp_checkpoint(ckpt, validate=False, device=device)
+
+
+def load_arcface_weights(path, device="cpu"):
+    """A torch ArcFace ``Backbone`` state dict -> params on ``device``,
+    unvalidated (:func:`validate_aux` checks it)."""
+    from tgi_torch.models.arcface import convert_torch_state_dict
+    return convert_torch_state_dict(load_state_dict(path), device)
+
+
 def validate_aux(pose_params=None, vgg_params=None, lpips_head=None,
-                 alex_params=None, alex_head=None, camera_dims=4,
-                 width_mult=1.0, pose_blocks=None):
+                 alex_params=None, alex_head=None, e4e_params=None,
+                 arcface_params=None, camera_dims=4, width_mult=1.0,
+                 pose_blocks=None, face_width_mult=1.0):
     """Check each converted weight tree against its init's tree of names
-    and shapes, as ``tgi/apps/run_pti.py:388-420`` does; raises ValueError
+    and shapes, as ``tgi/apps/run_pti.py:388-449`` does; raises ValueError
     with the difference.
 
     The command line checks at full width: ResNet-34's blocks, 64-channel
-    stems. ``width_mult`` and ``pose_blocks`` name a scaled pose net and
-    VGG (the tests' small nets); AlexNet and its LPIPS head are always
+    stems, IR-SE50's 512 channels. ``width_mult`` and ``pose_blocks`` name
+    a scaled pose net and VGG, ``face_width_mult`` a scaled e4e and
+    ArcFace (the tests' small nets); AlexNet and its LPIPS head are always
     full width."""
-    from tgi_torch.io.validate import expected_spec, validate_tree
+    from tgi_torch.io.validate import (arcface_spec, e4e_spec, expected_spec,
+                                       validate_tree)
     from tgi_torch.models.alexnet import alex_head_init, alexnet_init
     from tgi_torch.models.pose_resnet import BLOCKS_34, resnet34_init
     from tgi_torch.models.vgg import lpips_head_init, vgg16_init
@@ -258,6 +331,11 @@ def validate_aux(pose_params=None, vgg_params=None, lpips_head=None,
     if alex_head is not None:
         validate_tree(alex_head, expected_spec(alex_head_init, gen),
                       "lpips-alex head")
+    if e4e_params is not None:
+        validate_tree(e4e_params, e4e_spec(face_width_mult), "e4e encoder")
+    if arcface_params is not None:
+        validate_tree(arcface_params, arcface_spec(face_width_mult),
+                      "arcface")
 
 
 def main(argv=None):
@@ -278,11 +356,14 @@ def main(argv=None):
     @click.option("--pose-weights", default=None,
                   help="pose_estimator state dict .pt (stage 1)")
     @click.option("--e4e-weights", default=None,
-                  help="(stage 1's e4e start: not ported yet)")
+                  help="e4e/pSp checkpoint .pt (any published layout): "
+                       "stage 1 starts at w_avg + its code for the target")
     @click.option("--vgg-weights", default=None,
                   help="torchvision vgg16 state dict .pt, with the lpips "
                        "head's lin{i} weights where it has them (stage 1)")
-    @click.option("--arcface-weights", default=None, help="(--eval)")
+    @click.option("--arcface-weights", default=None,
+                  help="ArcFace IR-SE50 state dict .pt: --eval's ID "
+                       "similarity")
     @click.option("--lpips-weights", default=None,
                   help="lpips-package LPIPS(net='alex') state dict .pt")
     @click.option("--lpips-type", default="alex",
@@ -325,12 +406,6 @@ def main(argv=None):
         from tgi_torch.models.vgg import (convert_lpips_head,
                                           convert_torch_features)
 
-        if e4e_weights:
-            raise _not_ported("--e4e-weights (models/e4e.py)", 9)
-        if arcface_weights:
-            click.echo("WARNING: --arcface-weights is read by a part not "
-                       "ported yet (metrics: item 15); ignored")
-
         def require(path, flag):
             """A weight file that is named must exist; one that is absent
             needs --allow-random-init."""
@@ -361,13 +436,25 @@ def main(argv=None):
             alex_params, alex_head = (
                 params_from_numpy(t, device) for t in
                 convert_lpips_alex(load_state_dict(lpips_weights)))
+        e4e_params = arcface_params = None
+        for path, flag in ((e4e_weights, "--e4e-weights"),
+                           (arcface_weights, "--arcface-weights")):
+            if path and not os.path.exists(path):
+                raise click.ClickException(f"{flag}: file not found: {path}")
+        if e4e_weights:
+            # latent_avg is not used: pSp2.forward never adds it.
+            e4e_params, _ = load_e4e_weights(e4e_weights, device)
+        if arcface_weights:
+            arcface_params = load_arcface_weights(arcface_weights, device)
         validate_aux(pose_params, vgg_params, lpips_head, alex_params,
-                     alex_head,
+                     alex_head, e4e_params, arcface_params,
                      camera_dims=CAMERA_DIMS[camera_mode])
 
         for r in run_pti(image_dir, out_dir, G=G, gen_params=gen_params,
                          pose_params=pose_params, vgg_params=vgg_params,
-                         lpips_head=lpips_head, alex_params=alex_params,
+                         lpips_head=lpips_head, e4e_params=e4e_params,
+                         arcface_params=arcface_params,
+                         alex_params=alex_params,
                          alex_head=alex_head, lpips_type=lpips_type,
                          use_locality_reg=use_locality_reg,
                          camera_mode=camera_mode,

@@ -25,8 +25,8 @@ bfloat16, as in ``tgi``. ``tgi``'s ``dispatch_chunk`` (a TPU-relay
 guard), ``remat_render`` and ``batch_views`` (batching devices) and
 ``canon_sr_max_res`` (a gated fast mode, ROADMAP Queue A item 18) have
 no counterpart. Snapshots fire on the plain step counter.
-Without an e4e encoder (ROADMAP Queue A item 9) w starts at ``w_avg``,
-as in ``tgi`` without ``--e4e-weights``.
+w starts at ``w_avg`` plus, with an ``e4e_encode``, the encoder's output
+for the 256² [0, 255] target (w_projector.py:99-115).
 
 Every random draw can be given as a tensor, so tests hand the port
 ``tgi``'s draws: the z batch of :meth:`Projector.compute_w_stats`, the
@@ -175,13 +175,15 @@ class Projector:
     """
 
     def __init__(self, G, gen_params, vgg_params, lpips_head, pose_params,
-                 cfg: ProjectorConfig = ProjectorConfig()):
+                 cfg: ProjectorConfig = ProjectorConfig(), e4e_encode=None):
         self.G = G
         self.cfg = cfg
         self.base_params = gen_params
         self.vgg_params = vgg_params
         self.lpips_head = lpips_head
         self.pose_params = pose_params
+        # target_255 [1, 3, 256, 256] -> [1, w_dim] delta on w_avg.
+        self.e4e_encode = e4e_encode
         self.noise_paths = collect_noise_paths(gen_params)
         dev = next(_leaves(gen_params)).device
         self.device = dev
@@ -214,14 +216,28 @@ class Projector:
         w_std = torch.sqrt(torch.sum(torch.square(w - w_avg)) / z.shape[0])
         return w_avg[None], w_std
 
-    def init_state(self, *, generator=None, z=None, noise=None):
-        """(state, optimizers, w_std): w at ``w_avg``, the noise buffers
-        re-drawn from ``generator`` (or given as ``noise``, a dict keyed
-        like :func:`extract_noise`), zero translation, and a copy of the
-        pose tree, every leaf a tensor that requires grad; the three Adams
-        over them."""
+    def init_state(self, *, generator=None, z=None, noise=None,
+                   target_255=None):
+        """(state, optimizers, w_std): w at ``w_avg`` (plus the e4e
+        encoder's output for ``target_255`` when the projector has one),
+        the noise buffers re-drawn from ``generator`` (or given as
+        ``noise``, a dict keyed like :func:`extract_noise`), zero
+        translation, and a copy of the pose tree, every leaf a tensor that
+        requires grad; the three Adams over them."""
         cfg = self.cfg
         w_avg, w_std = self.compute_w_stats(generator=generator, z=z)
+        start_w = w_avg
+        if self.e4e_encode is not None:
+            if target_255 is None:
+                raise ValueError("the e4e start needs target_255")
+            # w starts at mean_w + the RAW encoder output
+            # (w_projector.py:113-115; pSp2.forward returns codes[:, 0, :]
+            # with no latent_avg added, e4e/psp.py:47-64): a delta on the
+            # generator's truncated w-mean. The encoder reads the 256²
+            # target in [0, 255] (w_projector.py:73).
+            with torch.no_grad():
+                start_w = w_avg + self.e4e_encode(
+                    target_255.float().to(self.device))[:, None, :]
         if noise is None:
             noise = {"/".join(p): torch.randn(
                 get_path(self.base_params, p).shape, generator=generator,
@@ -229,7 +245,7 @@ class Projector:
         def fresh(t):
             return t.detach().to(self.device).clone().requires_grad_(True)
 
-        state = {"w": fresh(w_avg),
+        state = {"w": fresh(start_w),
                  "noise": {k: fresh(noise[k]) for k in
                            ("/".join(p) for p in self.noise_paths)},
                  "translation": fresh(torch.zeros((1, 3))),
@@ -395,7 +411,8 @@ class Projector:
             target_feats = lpips_features(self.vgg_params, self.lpips_head,
                                           target_255)
         state, opts, w_std = self.init_state(generator=generator, z=z,
-                                             noise=noise)
+                                             noise=noise,
+                                             target_255=target_255)
         preheat_steps = min(cfg.cam_preheat_steps, num_steps)
         metrics = {"loss": [], "dist": [], "warp": []}
         for i in range(num_steps):

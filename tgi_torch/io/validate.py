@@ -2,7 +2,7 @@
 ``tgi/io/validate.py``).
 
 Every weight converter (reference generator pickle, pose ResNet, VGG,
-LPIPS heads) is a structural rename of a torch ``state_dict`` into the
+LPIPS heads, e4e, ArcFace) is a structural rename of a torch ``state_dict`` into the
 port's params tree. A file with the wrong layout would otherwise mis-nest
 silently and fail deep inside an apply, or behave like random weights.
 ``validate_tree`` compares a converted tree against the expected one
@@ -41,6 +41,20 @@ def expected_spec(init_fn, *args, **kwargs) -> dict[str, tuple]:
     with torch.device("meta"):
         tree = init_fn(*args, **{**kwargs, "device": "meta"})
     return tree_spec(tree)
+
+
+def e4e_spec(width_mult: float = 1.0) -> dict[str, tuple]:
+    """The e4e encoder's tree (IR-SE50 trunk, 18 style blocks, two
+    lateral layers), full width unless ``width_mult`` says otherwise."""
+    from tgi_torch.models.e4e import e4e_init
+    return expected_spec(e4e_init, None, width_mult=width_mult)
+
+
+def arcface_spec(width_mult: float = 1.0) -> dict[str, tuple]:
+    """The ArcFace IR-SE50 backbone's tree, full width unless
+    ``width_mult`` says otherwise."""
+    from tgi_torch.models.arcface import arcface_init
+    return expected_spec(arcface_init, None, width_mult=width_mult)
 
 
 def validate_tree(got: Any, expected: dict[str, tuple] | Any,

@@ -15,7 +15,7 @@ render; the sampler still reads them in float32.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any
 
 import torch
@@ -104,6 +104,12 @@ class GeneratorConfig:
     @property
     def num_ws(self) -> int:
         return self.backbone_cfg.num_ws
+
+    def with_rendering(self, **overrides) -> "GeneratorConfig":
+        """This config with ``rendering_kwargs`` updated by
+        ``overrides`` (e.g. fewer samples per ray)."""
+        return replace(self, rendering_kwargs={**self.rendering_kwargs,
+                                               **overrides})
 
 
 class TriPlaneGenerator:

@@ -1,0 +1,139 @@
+"""The closed-loop self-inversion gate at full width, with bootstrapped
+aux nets (the port's twin of ``bench.py``'s sections 4a and 4b).
+
+    python -m tgi_torch.scripts.selfinv_gate [--out F.json]
+
+The generator is EG3D's ``ffhqrebalanced512-128`` in fp32 with weights
+from ``GENERATOR_SEED``, TF32 off. The pose ResNet-34 and VGG16 are drawn from a
+seed and trained on a pseudo-dataset rendered by the generator
+(``invert.bootstrap.bootstrap_aux_nets``, seed 100), whose latent head
+is the e4e start; the gate (``invert.selfinv.self_inversion_eval``,
+seed 42) inverts a target rendered at a known (w*, cam*) through stage 1
+and stage 2, with the pose net aimed 3 degrees off the truth, the
+production 0.06 early stop as a probe, and the quality, camera and w
+traced every 50 steps. With bootstrapped nets the quat camera lr is the
+projector's divided by 30, as ``bench.py:452`` runs it: a harness
+adjustment for the substitute nets, not a change to the product. The
+script runs on the CUDA card at ``bench.py``'s budget; ``run_gate``
+takes smaller counts. Prints one JSON object (also written to
+``--out``): the bootstrap's report, the gate's metrics and seconds, and
+the tri-plane kernels' launches in each part.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from tgi_torch.ops import grid_sample as gs
+
+CAM_LR_DIVISOR = 30
+BOOTSTRAP_SEED = 100
+GATE_SEED = 42
+# The gate's generator. Seed 0 renders the gate's target black (99.4 % of
+# its pixels clamped at -1), so neither w nor the camera moves the image
+# near the truth and the gate reads ~0.9999 whatever stage 1 does; seed 2
+# is the first of the seeds 0-15 whose target has at most half its pixels
+# clamped and moves by an MSE >= 1e-3 for a w step of 3
+# (``selfinv_probe.informative``).
+GENERATOR_SEED = 2
+
+
+def launches():
+    return {"triplane_gather": gs.LAUNCHES,
+            "triplane_splat": gs.SPLAT_LAUNCHES,
+            "triplane_splat_sorted": gs.SORTED_SPLAT_LAUNCHES}
+
+
+def full_width_generator(device, seed=0, fused_dtype="float32"):
+    """(EG3D's ``ffhqrebalanced512-128`` generator in ``fused_dtype``,
+    its weights drawn from ``seed``)."""
+    from tgi_torch.models.generator import GeneratorConfig, TriPlaneGenerator
+    G = TriPlaneGenerator(GeneratorConfig(neural_rendering_resolution=128,
+                                          fused_dtype=fused_dtype))
+    return G, G.init(torch.Generator().manual_seed(seed), device=device)
+
+
+def seeded_nets(device, seed=1):
+    """(pose ResNet-34 with a quaternion head, VGG16, its LPIPS head,
+    AlexNet-LPIPS), full width, from ``seed``, as ``bench.py`` draws
+    them."""
+    from tgi_torch.losses.lpips import AlexLPIPSLoss
+    from tgi_torch.models.pose_resnet import resnet34_init
+    from tgi_torch.models.vgg import lpips_head_init, vgg16_init
+    gen = torch.Generator().manual_seed(seed)
+    return (resnet34_init(gen, 4, device), vgg16_init(gen, device),
+            lpips_head_init(gen, device),
+            AlexLPIPSLoss(generator=torch.Generator().manual_seed(5),
+                          device=device))
+
+
+def run_gate(G, params, *, device, num_images=1024, pose_steps=2000,
+             vgg_steps=800, stage1=400, stage2=400, preheat=None,
+             trace_every=50, aim_pose_deg=3.0, log=None):
+    """Bootstrap, then the gate. ``preheat`` overrides the projector's
+    camera-only steps (50), for budgets shorter than that. Returns
+    {"bootstrap": report, "gate": metrics, "launches": {"bootstrap",
+    "gate"}, "seconds": {...}}."""
+    from tgi_torch.invert.bootstrap import bootstrap_aux_nets
+    from tgi_torch.invert.projector import ProjectorConfig
+    from tgi_torch.invert.selfinv import self_inversion_eval
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    pose, vgg, head, lp = seeded_nets(device)
+    sync()
+    before = launches()
+    t0 = time.perf_counter()
+    pose_t, vgg_t, e4e, report = bootstrap_aux_nets(
+        G, params, seed=BOOTSTRAP_SEED, pose_params=pose, vgg_params=vgg,
+        num_images=num_images, pose_steps=pose_steps, vgg_steps=vgg_steps,
+        log=log)
+    sync()
+    t1 = time.perf_counter()
+    mid = launches()
+    overrides = {"cam_lr_quat": ProjectorConfig().cam_lr_quat
+                 / CAM_LR_DIVISOR}
+    if preheat is not None:
+        overrides["cam_preheat_steps"] = preheat
+    q = self_inversion_eval(
+        G, params, seed=GATE_SEED, vgg_params=vgg_t, lpips_head=head,
+        pose_params=pose_t, lpips_loss=lp, first_inv_steps=stage1,
+        max_pti_steps=stage2, aim_pose_deg=aim_pose_deg,
+        aim_calibrate=False, e4e_encode=e4e, proj_overrides=overrides,
+        early_stop_probe=0.06, trace_every=trace_every, log=log)
+    sync()
+    t2 = time.perf_counter()
+    after = launches()
+    return {"bootstrap": report, "gate": q,
+            "launches": {"bootstrap": {k: mid[k] - before[k] for k in mid},
+                         "gate": {k: after[k] - mid[k] for k in after}},
+            "seconds": {"bootstrap": t1 - t0, "gate": t2 - t1,
+                        "per_image": q["stage1_s"] + q["stage2_s"]},
+            "cam_lr_quat": overrides["cam_lr_quat"]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    G, params = full_width_generator("cuda", seed=GENERATOR_SEED)
+    out = run_gate(G, params, device="cuda",
+                   log=lambda m: print(m, flush=True))
+    out["device"] = torch.cuda.get_device_name(0)
+    text = json.dumps(out)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    print(text, flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -51,7 +51,20 @@ def save_image_grid(path, imgs, cols=None, input_range=(-1, 1)):
 
 
 def load_image(path, size=None, to_range=(-1, 1)) -> np.ndarray:
-    """Load RGB image -> [1, 3, H, W] float32 numpy in ``to_range``."""
+    """Load RGB image -> [1, 3, H, W] float32 numpy in ``to_range``.
+
+    A ``.npy`` file holds the image itself, a float [3, H, W] or
+    [1, 3, H, W] array in [-1, 1] (what :func:`save_image` takes), so
+    images load where Pillow is absent; it is resized by an area shrink
+    when its side is a multiple of ``size``, else by the antialiased
+    bilinear resize, rather than Pillow's Lanczos filter."""
+    if str(path).endswith(".npy"):
+        arr = np.load(path).astype(np.float32)
+        arr = arr.reshape((1,) + arr.shape[-3:])
+        if size is not None:
+            arr = _resize(arr, size)
+        lo, hi = to_range
+        return arr if (lo, hi) == (-1, 1) else (arr + 1) / 2 * (hi - lo) + lo
     from PIL import Image
     img = Image.open(path).convert("RGB")
     if size is not None:
@@ -60,3 +73,14 @@ def load_image(path, size=None, to_range=(-1, 1)) -> np.ndarray:
     lo, hi = to_range
     arr = arr * (hi - lo) + lo
     return np.transpose(arr, (2, 0, 1))[None]
+
+
+def _resize(arr, size) -> np.ndarray:
+    """[1, 3, H, W] float32 -> [1, 3, size, size]."""
+    from tgi_torch.losses.warp import area_downsample, bilinear_resize_nchw
+    if arr.shape[-1] == size and arr.shape[-2] == size:
+        return arr
+    x = torch.from_numpy(np.ascontiguousarray(arr))
+    if arr.shape[-1] == arr.shape[-2] and arr.shape[-1] % size == 0:
+        return area_downsample(x, size).numpy()
+    return bilinear_resize_nchw(x, size).numpy()
