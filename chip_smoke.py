@@ -110,6 +110,21 @@ and ``run_pti`` with the e4e start and ``--eval`` from seeded ``.pt``
 files (20 + 10 steps), its metrics checked; the gather and splat
 launches of each part counted.
 
+Phase 13 drives what ``run_pti`` writes at ``tgi``'s defaults, and
+GANSpace, on the seed-0 full-width generator: (a) ``sample_mixed`` on one
+1<<20-point chunk of the 256³ mesh grid through the gather (one launch)
+against the plain sampler; (b) ``extract_mesh`` at 256³, the native
+marching library built by g++ from the checkout, the sigma grid's 16
+chunks one gather each, a non-empty mesh and its .ply read back; (c)
+``render_orbit``, 8 frames 4 at a time with 96 + 96 samples, 2 gathers a
+batch, ms a frame and peak memory; (d) ``run_pti`` 20 + 10 steps with
+orbit videos (where imageio is installed), ``gen_mesh``,
+``use_locality_reg`` and ``visualize_opt``, the files it writes and its
+launches, and a tuning step with the locality term (6 gathers, 4
+splats) timed beside one without (2 and 2); (e) ``compute_pca`` at
+100,000 samples, the basis read back by ``load_components``, and the
+"smile" edit rendered.
+
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the tgi_torch package beside it, the
@@ -1687,6 +1702,7 @@ def phase_run_pti_eval(torch, gs, G, params, enc, arc, tmp):
     t0 = time.perf_counter()
     res = app.run_pti(imgs, out, G=G, gen_params=params, e4e_params=e4e_p,
                       arcface_params=arc_p, do_evaluation=True,
+                      gen_video=False,
                       first_inv_steps=STAGE1_STEPS // 3,
                       max_pti_steps=PTI_STEPS, seed=3, device=DEVICE)
     torch.cuda.synchronize()
@@ -1714,6 +1730,366 @@ def phase_run_pti_eval(torch, gs, G, params, enc, arc, tmp):
     check(launched == want, f"run_pti --eval launches {launched}, expected "
           f"{want}")
     return {"launches": launched, "wall": wall, "entry": entry}
+
+
+# Phase 13: what run_pti writes at tgi's defaults, and GANSpace. The
+# 256³ mesh grid goes in 16 chunks of 1<<20 points (z fastest); the orbit
+# renders 8 frames 4 at a time with 96 + 96 samples; run_pti inverts 20
+# + 10 steps with its outputs on; the PCA maps 100,000 (25 x 4096) z.
+MESH_RES, MESH_CHUNK, MESH_QUANTILE = 256, 1 << 20, 0.999
+ORBIT_FRAMES, ORBIT_BATCH, ORBIT_SAMPLE_MULT = 8, 4, 2
+OUTPUTS_STAGE1, OUTPUTS_PTI = 20, 10
+PCA_SAMPLES, PCA_BATCH = 100_000, 4096
+
+
+def _outputs_ws(torch, G, params, seed=1):
+    from tgi_torch.apps.gen_samples import seed_z
+    with torch.no_grad():
+        return G.mapping(params, seed_z(seed, G.cfg.z_dim, DEVICE),
+                         _camera(torch, 0.0), truncation_psi=0.7,
+                         truncation_cutoff=14)
+
+
+def phase_sample_mixed_chunk(torch, gs, G, params, ws):
+    """a. ``sample_mixed`` on the middle chunk of the 256³ mesh grid (a
+    regular grid, z fastest: hundreds of consecutive points share a cell
+    on the planes) through the gather kernel, one launch, against the
+    plain sampler on the same planes."""
+    import numpy as np
+    import tgi_torch.render.renderer as renderer
+    R = MESH_RES
+    lin = torch.from_numpy(np.linspace(-0.5, 0.5, R, dtype=np.float32)).to(
+        DEVICE)
+    c = (R ** 3 // MESH_CHUNK) // 2
+    idx = torch.arange(c * MESH_CHUNK, (c + 1) * MESH_CHUNK, device=DEVICE)
+    pts = torch.stack([lin[idx // (R * R)], lin[(idx // R) % R],
+                       lin[idx % R]], dim=-1)[None]
+    with torch.no_grad():
+        planes = G.backbone_planes(params, ws)
+        zero_counts(gs)
+        got = G.sample_mixed(params, pts, ws, planes=planes)
+        torch.cuda.synchronize()
+        launches = counts(gs)
+        renderer.sample_triplanes = gs.sample_triplanes_plain
+        try:
+            want = G.sample_mixed(params, pts, ws, planes=planes)
+        finally:
+            renderer.sample_triplanes = gs.sample_triplanes
+    err = max((got[k] - want[k]).abs().max().item() for k in ("sigma", "rgb"))
+    sigma = got["sigma"]
+    log(f"sample_mixed, grid chunk {c} of {R}³ ({MESH_CHUNK} points): "
+        f"kernel vs plain max abs err {err:.3g}, launches {launches}; sigma "
+        f"in [{sigma.min().item():.4g}, {sigma.max().item():.4g}]")
+    check(launches["triplane_gather"] == 1
+          and launches["triplane_splat"] == 0,
+          f"sample_mixed launched {launches}, expected one gather")
+    check(err <= SWAP_TOL, f"sample_mixed kernel vs plain: {err} > "
+          f"{SWAP_TOL}")
+    return {"launches": launches["triplane_gather"], "max_abs_err": err}
+
+
+def _read_ply(path):
+    import numpy as np
+    with open(path) as f:
+        head = []
+        while not head or head[-1] != "end_header":
+            head.append(f.readline().strip())
+        nv = int(next(h for h in head if h.startswith("element vertex"))
+                 .split()[-1])
+        nf = int(next(h for h in head if h.startswith("element face"))
+                 .split()[-1])
+        verts = np.loadtxt(f, dtype=np.float32, max_rows=nv, ndmin=2)
+        faces = np.loadtxt(f, dtype=np.int64, max_rows=nf, ndmin=2)
+    return verts, faces[:, 1:]
+
+
+def phase_mesh(torch, gs, G, params, ws, tmp):
+    """b. ``extract_mesh`` at 256³: the native marching library built by
+    g++ from the checkout's source, the sigma grid in 16 chunks (one
+    gather each), a non-empty mesh, and the .ply written and read back.
+    ``tgi``'s level of 10 is a trained generator's: a random one's sigma
+    stays far below it (the seed-0 generator's within [-0.89, 0.56]), so
+    the mesh is taken at the grid's MESH_QUANTILE."""
+    import numpy as np
+    from tgi_torch.apps import shape
+    from tgi_torch.utils import marching, native_build
+    check(native_build.available(), "no g++: the marching library cannot "
+          "be built")
+    src = os.path.join(REPO, "tgi_torch", "native", "marching_tet.cpp")
+    t0 = time.perf_counter()
+    native_build.get_plugin("tgi_marching", [src])
+    build_s = time.perf_counter() - t0
+    # One set of planes for both grids: the backbone's cuDNN convolutions
+    # need not repeat their bits from call to call.
+    with torch.no_grad():
+        planes = G.backbone_planes(params, ws)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = shape.sigma_grid(G, params, ws, resolution=MESH_RES,
+                            chunk=MESH_CHUNK, planes=planes)
+    grid_s = time.perf_counter() - t0
+    level = float(np.quantile(grid, MESH_QUANTILE))
+    t0 = time.perf_counter()
+    want_v, want_f = marching.marching_tetrahedra(grid, level=level,
+                                                  spacing=1.0 / MESH_RES)
+    march_s = time.perf_counter() - t0
+    ply = os.path.join(tmp, "mesh.ply")
+    zero_counts(gs)
+    t0 = time.perf_counter()
+    verts, faces = shape.extract_mesh(G, params, ws, resolution=MESH_RES,
+                                      level=level, out_ply=ply,
+                                      chunk=MESH_CHUNK, planes=planes)
+    mesh_s = time.perf_counter() - t0
+    launches = counts(gs)
+    back_v, back_f = _read_ply(ply)
+    log(f"extract_mesh at {MESH_RES}³: marching library built in "
+        f"{build_s:.1f} s; sigma grid {grid_s:.2f} s (sigma in "
+        f"[{grid.min():.4g}, {grid.max():.4g}], {(grid > 10).mean():.2%} "
+        f"above tgi's level 10; level {level:.4g} at the {MESH_QUANTILE} "
+        f"quantile); marching {march_s:.2f} s: {len(verts)} verts, "
+        f"{len(faces)} faces; extract_mesh with the .ply "
+        f"({os.path.getsize(ply) / 2 ** 20:.1f} MiB) {mesh_s:.1f} s, "
+        f"launches {launches}")
+    check(launches["triplane_gather"] == -(-MESH_RES ** 3 // MESH_CHUNK)
+          and launches["triplane_splat"] == 0,
+          f"extract_mesh launches {launches}, expected one gather a chunk")
+    check(bool(np.isfinite(grid).all()), "non-finite sigma")
+    check(len(verts) > 0 and len(faces) > 0, f"empty mesh at {level}")
+    check(np.array_equal(verts, want_v) and np.array_equal(faces, want_f),
+          "extract_mesh's mesh is not the grid's")
+    check(np.array_equal(back_f, faces) and back_v.shape == verts.shape
+          and np.abs(back_v - verts).max() <= 1e-6,
+          "the .ply does not read back as the mesh")
+    return {"launches": launches["triplane_gather"], "sigma_grid_s": grid_s,
+            "marching_s": march_s, "build_s": build_s,
+            "extract_mesh_s": mesh_s, "verts": len(verts),
+            "faces": len(faces)}
+
+
+def phase_orbit(torch, gs, G, params, ws):
+    """c. ``render_orbit``: 8 frames, 4 at a time, 96 + 96 samples; two
+    gathers per batched render, frames that turn; ms per frame and the
+    peak memory."""
+    from tgi_torch.apps.gen_videos import render_orbit
+    render_orbit(G, params, ws, num_frames=ORBIT_BATCH, batch=ORBIT_BATCH,
+                 sample_mult=ORBIT_SAMPLE_MULT)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(gs)
+    t0 = time.perf_counter()
+    frames = render_orbit(G, params, ws, num_frames=ORBIT_FRAMES,
+                          batch=ORBIT_BATCH, sample_mult=ORBIT_SAMPLE_MULT)
+    wall = time.perf_counter() - t0
+    launches = counts(gs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    d = abs(frames[0].astype(int) - frames[4]).mean()
+    ms = wall * 1e3 / ORBIT_FRAMES
+    log(f"render_orbit: {ORBIT_FRAMES} frames, batch {ORBIT_BATCH}, "
+        f"sample_mult {ORBIT_SAMPLE_MULT}: {ms:.1f} ms a frame (host clock, "
+        f"PNG-free: frames to uint8 on the host included), peak memory "
+        f"{peak:.2f} GiB, launches {launches}, frames 0 / 4 differ by "
+        f"{d:.2f} (mean abs, uint8)")
+    check(frames.shape == (ORBIT_FRAMES, 512, 512, 3)
+          and str(frames.dtype) == "uint8", f"frames {frames.shape} "
+          f"{frames.dtype}")
+    check(launches["triplane_gather"] == 2 * ORBIT_FRAMES // ORBIT_BATCH
+          and launches["triplane_splat"] == 0,
+          f"render_orbit launches {launches}, expected 2 per batch")
+    check(d > 0.1, f"frames 0 and 4 do not differ ({d})")
+    err = _orbit_batch_swap_err(torch, gs, G, params, ws)
+    log(f"render_orbit's batch 0 ({ORBIT_BATCH} frames, sample_mult "
+        f"{ORBIT_SAMPLE_MULT}), plain sampler vs kernel: max abs err {err}")
+    check(max(err.values()) <= SWAP_TOL,
+          f"orbit batch, plain sampler vs kernel: {err} > {SWAP_TOL}")
+    return {"launches": launches["triplane_gather"], "ms_per_frame": ms,
+            "peak_gib": peak, "max_abs_err": max(err.values())}
+
+
+def _orbit_batch_swap_err(torch, gs, G, params, ws):
+    """render_orbit's first batch (N = ORBIT_BATCH, 96 + 96 samples a ray)
+    rendered through the kernel and through the plain sampler; max abs
+    difference of image, image_raw and image_depth. Its launches are
+    outside the counted run."""
+    import tgi_torch.render.renderer as renderer
+    from tgi_torch.apps.gen_videos import orbit_cameras
+    rk = G.cfg.rendering_kwargs
+    Gv = type(G)(G.cfg.with_rendering(
+        depth_resolution=int(rk["depth_resolution"] * ORBIT_SAMPLE_MULT),
+        depth_resolution_importance=int(
+            rk["depth_resolution_importance"] * ORBIT_SAMPLE_MULT)))
+    cams = orbit_cameras(ORBIT_FRAMES, (0, 0, 0.2), device=DEVICE)
+    wsb = ws.expand(ORBIT_BATCH, *ws.shape[1:]).contiguous()
+    keys = ("image", "image_raw", "image_depth")
+    with torch.no_grad():
+        got = Gv.synthesis(params, wsb, cams[:ORBIT_BATCH], det=True)
+        got = {k: got[k].float() for k in keys}
+        before = gs.LAUNCHES
+        renderer.sample_triplanes = gs.sample_triplanes_plain
+        try:
+            want = Gv.synthesis(params, wsb, cams[:ORBIT_BATCH], det=True)
+        finally:
+            renderer.sample_triplanes = gs.sample_triplanes
+        torch.cuda.synchronize()
+    check(gs.LAUNCHES == before, "the plain orbit render launched the kernel")
+    return {k: (got[k] - want[k].float()).abs().max().item() for k in keys}
+
+
+def _locality_step_ms(torch, gs, G, params, st, with_locality, steps=4,
+                      warmup=1):
+    """One tuning step (loss forward, backward, Adam) with or without the
+    locality term, CUDA-event median; the launches of one step."""
+    from tgi_torch.invert.coach import PTICoach
+    from tgi_torch.losses.locality import SpaceRegularizer
+    coach = st["coach"]
+    reg = (SpaceRegularizer(G, params, coach.lpips) if with_locality
+           else None)
+    c = PTICoach(G, coach.lpips, coach.cfg, locality_regularizer=reg)
+    p = {k: _map_detach(v) for k, v in params.items()}
+    opt = torch.optim.Adam(list(_leaves(p)), lr=c.cfg.pti_learning_rate)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    times, per_step = [], None
+    for i in range(warmup + steps):
+        zero_counts(gs)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss, aux = c._loss(p, st["ws"], st["cam"], st["target"],
+                            generator=gen)
+        float(aux["lpips"].detach())
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        b.record()
+        b.synchronize()
+        if i >= warmup:
+            times.append(a.elapsed_time(b))
+        per_step = counts(gs)
+    return statistics.median(times), per_step
+
+
+def phase_run_pti_outputs(torch, gs, G, params, st, tmp):
+    """d. ``run_pti`` at tgi's defaults (orbit videos on, where imageio is
+    installed) with ``gen_mesh``, ``use_locality_reg`` and
+    ``visualize_opt``: 20 + 10 steps on a 512² target rendered from seed
+    2's latent, the aux nets drawn at full width from the seed; the files
+    it writes and its launches; one tuning step timed with and without
+    the locality term."""
+    import importlib.util
+    import numpy as np
+    from tgi_torch.apps import run_pti as app
+    video = importlib.util.find_spec("imageio") is not None
+    check(importlib.util.find_spec("PIL") is not None,
+          "no Pillow: run_pti's snapshots and PNGs need it")
+    img, _ = stage1_target(torch, G, params)
+    imgs, out = os.path.join(tmp, "out_images"), os.path.join(tmp, "outputs")
+    os.makedirs(imgs)
+    np.save(os.path.join(imgs, "face.npy"), img[0].cpu().numpy())
+    log("run_pti outputs: imageio " + (
+        "installed: orbit videos on (the default)" if video else
+        "absent: gen_video=False (write_video would raise ImportError), "
+        "render_orbit driven in c alone"))
+    zero_counts(gs)
+    t0 = time.perf_counter()
+    res = app.run_pti(imgs, out, G=G, gen_params=params, gen_video=video,
+                      gen_mesh=True, use_locality_reg=True,
+                      visualize_opt=True, first_inv_steps=OUTPUTS_STAGE1,
+                      max_pti_steps=OUTPUTS_PTI, seed=4, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts(gs)
+    entry = res[0]
+    files = sorted(os.listdir(out))
+    snaps = sorted(os.listdir(f"{out}_pivot/face"))
+    log(f"run_pti --mesh --use-locality-reg --visualize-opt"
+        f"{'' if video else ' --no-video'}: {wall:.1f} s, entry {entry}, "
+        f"launches {launched}, files {files}, snapshots {snaps}")
+    want_files = {"face_ws.npy", "face_cam.npy", "face_G.pt", "face.ply",
+                  "results.json", "face.png", "face_pivot.png"}
+    check(want_files <= set(files), f"run_pti wrote {files}, expected "
+          f"{sorted(want_files)}")
+    if video:
+        for stem in ("face_pivot", "face"):
+            check(any(f in files for f in (f"{stem}.mp4", f"{stem}.gif")),
+                  f"no {stem} video in {files}")
+    check(snaps == sorted(["10.png", "20.png", "warp_10.png",
+                           "warp_20.png"]), f"snapshots {snaps}")
+    s1, s2 = OUTPUTS_STAGE1, entry["pti_steps"]
+    renders = s2 + (s2 < OUTPUTS_PTI)     # with the one that stopped it
+    mesh = -(-MESH_RES ** 3 // MESH_CHUNK)
+    # Stage 1 two renders a step, two snapshots of two renders, tuning
+    # three renders a step, the two PNG renders, two 60-frame videos in
+    # batches of 4, the mesh's chunks: two gathers a render.
+    want = {"triplane_gather": (4 * s1 + 2 * 4 + 6 * renders + 2 * 2
+                                + video * 2 * 2 * (60 // 4) + mesh),
+            "triplane_splat": 4 * s1 + 4 * s2,
+            "triplane_splat_sorted": 0, "triplane_splat_keys": 0,
+            "triplane_splat_offsets": 0}
+    check(launched == want, f"run_pti outputs launches {launched}, "
+          f"expected {want}")
+    with_ms, with_launches = _locality_step_ms(torch, gs, G, params, st,
+                                               True)
+    without_ms, without_launches = _locality_step_ms(torch, gs, G, params,
+                                                     st, False)
+    log(f"tuning step, one call: with the locality term {with_ms:.2f} ms "
+        f"({with_launches}), without {without_ms:.2f} ms "
+        f"({without_launches}) (CUDA events, median of 4)")
+    check(with_launches["triplane_gather"] == 6
+          and with_launches["triplane_splat"] == 4,
+          f"a locality tuning step launched {with_launches}, expected 6 "
+          f"gathers and 4 splats")
+    check(without_launches["triplane_gather"] == 2
+          and without_launches["triplane_splat"] == 2,
+          f"a tuning step launched {without_launches}, expected 2 and 2")
+    return {"launches": launched, "wall_s": wall, "video": video,
+            "entry": entry, "step_ms_locality": with_ms,
+            "step_ms": without_ms}
+
+
+def phase_ganspace(torch, gs, G, params, ws, tmp):
+    """e. ``compute_pca`` at 100,000 samples, the basis saved and read by
+    ``load_components``, and ``edit_and_render`` with the "smile"
+    direction."""
+    import numpy as np
+    from tgi_torch.apps import ganspace
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comps, stdev, mean = ganspace.compute_pca(
+        G, params, num_samples=PCA_SAMPLES, batch=PCA_BATCH,
+        generator=torch.Generator(device=DEVICE).manual_seed(6))
+    pca_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "pcs.npy")
+    np.save(path, comps)
+    basis = ganspace.load_components(path, w_dim=G.cfg.w_dim)
+    zero_counts(gs)
+    orig, edit = ganspace.edit_and_render(G, params, ws, _camera(torch, 0.0),
+                                          basis, direction="smile")
+    torch.cuda.synchronize()
+    launches = counts(gs)
+    d = (edit - orig).abs().mean().item()
+    log(f"ganspace: PCA of {-(-PCA_SAMPLES // PCA_BATCH) * PCA_BATCH} w in "
+        f"{pca_s:.2f} s (stdev {stdev[0]:.4g} .. {stdev[-1]:.4g}); smile "
+        f"edit differs by {d:.4g} (mean abs); launches {launches}")
+    check(bool(np.isfinite(comps).all() and np.isfinite(stdev).all()),
+          "non-finite PCA")
+    check(bool(torch.isfinite(edit).all()) and d > 1e-4,
+          f"the smile edit is not finite or does not differ ({d})")
+    check(launches["triplane_gather"] == 4, f"edit_and_render launched "
+          f"{launches}, expected 2 renders")
+    return {"launches": launches["triplane_gather"], "pca_s": pca_s}
+
+
+def phase_outputs(torch, gs, G, params, st, tmp):
+    """Phase 13, a-e, on the seed-0 generator."""
+    t0 = time.perf_counter()
+    ws = _outputs_ws(torch, G, params)
+    out = {"sample_mixed": phase_sample_mixed_chunk(torch, gs, G, params,
+                                                    ws),
+           "mesh": phase_mesh(torch, gs, G, params, ws, tmp),
+           "orbit": phase_orbit(torch, gs, G, params, ws),
+           "run_pti": phase_run_pti_outputs(torch, gs, G, params, st, tmp),
+           "ganspace": phase_ganspace(torch, gs, G, params, ws, tmp)}
+    log(f"phase 13 (outputs) in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def phase_forward_repeat(torch, G, params, st):
@@ -2423,6 +2799,7 @@ def main():
         enc, arc, face_errs = phase_faces_vs_cpu(torch)
         pti_eval = phase_run_pti_eval(torch, gs, G, params, enc, arc, tmp)
         del enc, arc
+        outputs = phase_outputs(torch, gs, G, params, st, tmp)
     gather_times = phase_times(torch, gs, G, params, bw)
     _, seen = phase_step_times(torch, gs, params, st)
     splat_times = phase_splat_times(torch, gs, seen, bw)
@@ -2476,8 +2853,21 @@ def main():
                              "selfinv_gate": gate["launches"]["gate"][
                                  "triplane_gather"],
                              "run_pti_eval": pti_eval["launches"][
-                                 "triplane_gather"]},
-        "max_abs_err": gather_err, **gather_times}, {
+                                 "triplane_gather"],
+                             "sample_mixed_chunk": outputs["sample_mixed"][
+                                 "launches"],
+                             "extract_mesh_256": outputs["mesh"]["launches"],
+                             "render_orbit_8_frames": outputs["orbit"][
+                                 "launches"],
+                             "run_pti_outputs": outputs["run_pti"][
+                                 "launches"]["triplane_gather"],
+                             "ganspace_edit": outputs["ganspace"][
+                                 "launches"]},
+        "max_abs_err": gather_err,
+        "sample_mixed_chunk_max_abs_err": outputs["sample_mixed"][
+            "max_abs_err"],
+        "render_orbit_batch_max_abs_err": outputs["orbit"]["max_abs_err"],
+        **gather_times}, {
         "name": "triplane_splat", "route": "cuda",
         "source": "tgi_torch/csrc/triplane_splat.cu",
         "replaces": "tgi/ops/pallas/splat_pack.py:192",
@@ -2498,7 +2888,9 @@ def main():
                              "selfinv_gate": gate["launches"]["gate"][
                                  "triplane_splat"],
                              "run_pti_eval": pti_eval["launches"][
-                                 "triplane_splat"]},
+                                 "triplane_splat"],
+                             "run_pti_outputs": outputs["run_pti"][
+                                 "launches"]["triplane_splat"]},
         "max_abs_err": splat_err, "max_rel_err": splat_rel,
         **splat_times, "check_shape_c16": small_splat}, {
         "name": "triplane_splat_sorted", "route": "cuda",
@@ -2530,7 +2922,16 @@ def main():
                                      if not k.endswith("_trace")}},
         "face_nets_card_vs_cpu_rel_err": face_errs,
         "run_pti_eval": {"wall_s": pti_eval["wall"],
-                         "metrics": pti_eval["entry"]}}),
+                         "metrics": pti_eval["entry"]},
+        "outputs": {
+            "mesh_256": {k: outputs["mesh"][k] for k in
+                         ("sigma_grid_s", "marching_s", "build_s",
+                          "extract_mesh_s", "verts", "faces")},
+            "render_orbit": {k: outputs["orbit"][k] for k in
+                             ("ms_per_frame", "peak_gib")},
+            "run_pti": {k: outputs["run_pti"][k] for k in
+                        ("wall_s", "video", "step_ms_locality", "step_ms")},
+            "pca_s": outputs["ganspace"]["pca_s"]}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,6 @@
 """tgi_torch and chip_smoke.py stand alone: no jax, no ml_dtypes, no tgi,
-and no click or PIL at module level (the card's machine has none of
-them)."""
+and no click, PIL, imageio, scipy, tensorboard or wandb at module level
+(the card's machine may have none of them)."""
 
 import ast
 import os
@@ -9,6 +9,8 @@ import sys
 
 import pytest
 
+# Imported only inside the functions that use them.
+OPTIONAL = {"click", "PIL", "imageio", "scipy", "tensorboard", "wandb"}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "tgi_torch")
 
@@ -45,7 +47,7 @@ def test_no_forbidden_imports(path):
     anywhere = {m for n in ast.walk(tree) for m in _imports(n)}
     assert not anywhere & {"jax", "jaxlib", "ml_dtypes", "tgi"}, anywhere
     top = {m for n in tree.body for m in _imports(n)}
-    assert not top & {"click", "PIL"}, top
+    assert not top & OPTIONAL, top
 
 
 def test_import_without_jax_or_tgi():
@@ -53,8 +55,8 @@ def test_import_without_jax_or_tgi():
     with jax and tgi made unimportable."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'ml_dtypes', 'tgi', 'click', "
-        "'PIL'):\n"
+        f"for name in ('jax', 'jaxlib', 'ml_dtypes', 'tgi', "
+        f"*{sorted(OPTIONAL)!r}):\n"
         "    sys.modules[name] = None\n"
         f"sys.path.insert(0, {REPO!r})\n"
         "import importlib\n"
@@ -77,6 +79,15 @@ def test_scan_covers_the_stage2_modules():
             "tgi_torch.models.alexnet", "tgi_torch.utils.image",
             "tgi_torch.io.pickle_import", "tgi_torch.io.validate"} <= set(
                 _modules())
+
+
+def test_scan_covers_the_output_modules():
+    """The scans above reach every module of the outputs slice (videos,
+    meshes, the locality regulariser, snapshots, GANSpace)."""
+    assert {"tgi_torch.apps.gen_videos", "tgi_torch.apps.shape",
+            "tgi_torch.apps.ganspace", "tgi_torch.losses.locality",
+            "tgi_torch.utils.marching", "tgi_torch.utils.native_build",
+            "tgi_torch.utils.opt_viz"} <= set(_modules())
 
 
 def test_scan_covers_the_gate_modules():

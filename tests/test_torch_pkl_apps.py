@@ -103,8 +103,9 @@ def test_run_pti_cli_from_a_pkl(tiny_pkl, tmp_path, capsys, monkeypatch):
     assert e.value.code == 0
     entry = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert entry["pti_steps"] == 1
-    # Stage 1: two float32 renders; stage 2 and the two PNG renders: bf16.
-    assert seen == {True: 2, False: 3}
+    # Stage 1: two float32 renders; stage 2, the two PNG renders and the
+    # two orbit videos (on by default: 15 renders of 4 frames each): bf16.
+    assert seen == {True: 2, False: 3 + 2 * 15}
     assert tuned_dtypes == [torch.float32]
     ws, cam = np.load(out / "face_ws.npy"), np.load(out / "face_cam.npy")
     assert ws.shape == (1, gt.cfg.num_ws, 32) and cam.shape == (1, 25)

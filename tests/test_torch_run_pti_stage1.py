@@ -6,7 +6,7 @@ SuperresolutionTiny, 64² images) with small stage-1 networks
 ``test_torch_projector.py``; here the app's contract: the pivots
 ``{name}_ws.npy`` and ``{name}_cam.npy`` written in tgi's format, stage 2
 tuned around them, weight files read through the converters, and the
-parts not ported yet refused."""
+part not ported yet (batched inversion) refused."""
 
 import json
 
@@ -159,9 +159,15 @@ def test_run_pti_cli_refuses_a_missing_weight_file(setup, tmp_path):
 @pytest.mark.parametrize("kw,item", [({"visualize_opt": True}, "item 7"),
                                      ({"batch": 2}, "item 18")])
 def test_run_pti_refuses_stage1_parts_not_ported(setup, tmp_path, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        app.run_pti(str(tmp_path), str(tmp_path), G=setup["gt"],
-                    gen_params=setup["pt"], device="cpu", **kw)
+    """Batched inversion (item 18) is refused; stage 1's snapshots (item
+    7) are ported and accepted."""
+    if item == "item 18":
+        with pytest.raises(NotImplementedError, match=item):
+            app.run_pti(str(tmp_path), str(tmp_path), G=setup["gt"],
+                        gen_params=setup["pt"], device="cpu", **kw)
+    else:
+        assert app.run_pti(str(tmp_path), str(tmp_path), G=setup["gt"],
+                           gen_params=setup["pt"], device="cpu", **kw) == []
 
 
 def test_invert_one_needs_a_projector_without_pivots(setup, tmp_path):

@@ -4,9 +4,10 @@ parity target gen_samples.py: seeds -> images at yaw/pitch offsets).
 The command line reads the generator from ``--network`` — a reference
 EG3D ``.pkl``, rendered in bf16 mixed precision as ``tgi`` renders it,
 or the port's ``.pt`` — or, without it, draws full-width weights from
-``--weights-seed``. ``--shapes`` is not ported yet (ROADMAP Queue A
-item 11). ``click`` and ``PIL`` are imported only by the command line
-and by PNG writing.
+``--weights-seed``. ``--shapes`` also writes each seed's mesh
+(``seed{seed:04d}.ply``, ``apps/shape.py`` at ``--shape-res``).
+``click`` and ``PIL`` are imported only by the command line and by PNG
+writing.
 """
 
 from __future__ import annotations
@@ -44,13 +45,18 @@ def seed_z(seed: int, z_dim: int, device) -> torch.Tensor:
 @torch.no_grad()
 def generate_samples(G, params, seeds, *, outdir=None, truncation_psi=0.7,
                      truncation_cutoff=14, angles=((0.0, 0.0),), fov=18.837,
-                     radius=2.7, pivot=(0, 0, 0.2), device=None):
+                     radius=2.7, pivot=(0, 0, 0.2), shapes=False,
+                     shape_res=256, device=None):
     """Render each seed at each (yaw_offset, pitch_offset) angle.
 
     Returns one dict per (seed, angle): ``seed``, ``angle``, the
     ``image`` / ``image_raw`` / ``image_depth`` tensors, and ``path``,
     the PNG written under ``outdir`` (None when ``outdir`` is None).
+    ``shapes`` also extracts each seed's mesh at ``shape_res``³ and
+    writes it to ``outdir/seed{seed:04d}.ply``.
     """
+    if shapes and outdir is None:
+        raise ValueError("shapes=True writes meshes: it needs an outdir")
     device = device or default_device()
     if outdir is not None:
         os.makedirs(outdir, exist_ok=True)
@@ -76,6 +82,10 @@ def generate_samples(G, params, seeds, *, outdir=None, truncation_psi=0.7,
             results.append({"seed": seed, "angle": (dy, dp), "path": path,
                             **{k: out[k] for k in
                                ("image", "image_raw", "image_depth")}})
+        if shapes:
+            from tgi_torch.apps.shape import extract_mesh
+            extract_mesh(G, params, ws, resolution=shape_res,
+                         out_ply=os.path.join(outdir, f"seed{seed:04d}.ply"))
     return results
 
 
@@ -99,9 +109,12 @@ def main(argv=None):
     @click.option("--render-res", default=128,
                   help="neural rendering resolution of the random weights "
                        "(a --network keeps its own)")
+    @click.option("--shapes", is_flag=True,
+                  help="also write each seed's mesh, seed{seed:04d}.ply")
+    @click.option("--shape-res", default=256)
     @click.option("--device", default=default_device())
     def cli(network, seeds, outdir, truncation_psi, weights_seed, render_res,
-            device):
+            shapes, shape_res, device):
         if network:
             from tgi_torch.apps.run_pti import load_any_generator
             G, params = load_any_generator(network, device=device)
@@ -114,6 +127,7 @@ def main(argv=None):
                                   outdir=outdir,
                                   truncation_psi=truncation_psi,
                                   angles=((0.35, 0), (0, 0), (-0.35, 0)),
+                                  shapes=shapes, shape_res=shape_res,
                                   device=device):
             print(r["path"])
 

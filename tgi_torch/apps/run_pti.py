@@ -11,12 +11,19 @@ training/coaches/single_id_coach.py:25-117. Per image:
 With ``use_last_w_pivots`` and both pivot files in the output directory,
 stage 1 is skipped and the pivots are reloaded (base_coach.py:69-77).
 With an e4e encoder, stage 1 starts from ``w_avg`` plus its output for the
-target (w_projector.py:99-115). It writes ``{name}_G.pt`` (the tuned
-generator), ``{name}.png`` and ``{name}_pivot.png`` (where Pillow is
-installed), with ``do_evaluation`` ``{name}metrics.txt`` (MSE, LPIPS,
-MS-SSIM and, with ArcFace weights, the ID similarity;
-single_id_coach.py:87-106), and ``results.json``. Images are PNG or JPEG
-files, or ``.npy`` arrays in [-1, 1] where Pillow is absent
+target (w_projector.py:99-115). With ``use_locality_reg``, stage 2 adds
+the locality regulariser (``losses/locality.py``). It writes
+``{name}_G.pt`` (the tuned generator), ``{name}.png`` and
+``{name}_pivot.png`` (where Pillow is installed), orbit videos of the
+pivot and of the tuned generator (``{name}_pivot.mp4`` and
+``{name}.mp4``, or GIFs where mp4 writing fails; on by default, as in
+``tgi``), with ``gen_mesh`` ``{name}.ply`` (a 256³ sigma grid through
+marching tetrahedra), with ``visualize_opt`` stage 1's snapshots under
+``<outdir>_pivot/<name>/``, with ``do_evaluation`` ``{name}metrics.txt``
+(MSE, LPIPS, MS-SSIM and, with ArcFace weights, the ID similarity;
+single_id_coach.py:87-106), and ``results.json``; ``tensorboard`` and
+``use_wandb`` mirror the metrics (``utils/opt_viz.py``). Images are PNG
+or JPEG files, or ``.npy`` arrays in [-1, 1] where Pillow is absent
 (``tgi_torch.utils.image.load_image``).
 
 The generator comes from a reference EG3D ``.pkl`` (read by
@@ -27,10 +34,8 @@ float32 (``ProjectorConfig.render_fp32``) and stage 2 tunes in the
 generator's bf16 blocks. A ``.pt`` keeps the config stored with it.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: stage 1's snapshots (ROADMAP Queue A item 7), orbit videos and
-meshes (item 11), the locality regulariser (item 8), batched inversion
-(item 18), and tensorboard and wandb (item 9). ``click`` and ``PIL`` are
-imported only where they are used.
+skipped: batched inversion (ROADMAP Queue A item 18). ``click``,
+``PIL`` and ``imageio`` are imported only where they are used.
 """
 
 from __future__ import annotations
@@ -108,16 +113,25 @@ def evaluate_reconstruction(gen_img, real_img, lpips_loss, arcface_params):
 
 def invert_one(name, img, *, G, gen_params, coach, out_dir, projector=None,
                target_255=None, use_last_w_pivots=True, save_pivot=True,
-               generator=None, evaluate=None):
+               generator=None, evaluate=None, gen_video=False,
+               gen_mesh=False, snapshot_fn=None, tb=None, step=0):
     """Both stages for one target ``img`` ([1, 3, R, R] in [-1, 1], on the
-    generator's device) named ``name``.
+    generator's device) named ``name``, then its outputs.
 
     With ``use_last_w_pivots`` and both pivot files saved in ``out_dir``,
     stage 2 starts from them. Otherwise ``projector`` runs stage 1 on
     ``target_255`` ([1, 3, 256, 256] in [0, 255], the pose net's and
-    LPIPS's input), with ``img`` as the warping loss's target, and the
-    pivots it finds are written as ``tgi`` writes them. The draws of both
-    stages come from ``generator``. ``evaluate(final, img) -> dict`` (see
+    LPIPS's input), with ``img`` as the warping loss's target and
+    ``snapshot_fn`` as its snapshot hook, and the pivots it finds are
+    written as ``tgi`` writes them. The draws of both stages come from
+    ``generator``.
+
+    Outputs in ``tgi``'s order (single_id_coach.py:57-62, 80-116): the
+    pivot grid, the pivot's orbit video (``gen_video``: 60 frames in
+    batches of 4), the result grid, ``{name}_G.pt``, the tuned orbit
+    video, the mesh (``gen_mesh``, at 256³). ``tb``
+    (a writer of ``utils/opt_viz.py``) gets the projection losses and the
+    entry's numbers at ``step``. ``evaluate(final, img) -> dict`` (see
     :func:`evaluate_reconstruction`) adds its metrics to the entry, which
     is then also written to ``{name}metrics.txt``.
 
@@ -139,7 +153,11 @@ def invert_one(name, img, *, G, gen_params, coach, out_dir, projector=None,
             raise ValueError(f"{name}: no saved pivots, and stage 1 needs "
                              f"a projector and target_255")
         ws, cam, _, projection = projector.project(
-            target_255, generator=generator, target_full=img)
+            target_255, generator=generator, target_full=img,
+            snapshot_fn=snapshot_fn)
+        if tb is not None:
+            for s, v in enumerate(projection["loss"]):
+                tb.scalar(f"{name}/projection_loss", v, s)
         np.save(ws_file, ws.cpu().numpy())
         np.save(cam_file, cam.cpu().numpy())
 
@@ -148,23 +166,42 @@ def invert_one(name, img, *, G, gen_params, coach, out_dir, projector=None,
         info["projection"] = projection
 
     pil = importlib.util.find_spec("PIL") is not None
+    if pil:
+        from tgi_torch.utils.image import save_image_grid
+    if gen_video:
+        from tgi_torch.apps.gen_videos import gen_interp_video
     final = None
     with torch.no_grad():
+        if pil and save_pivot:
+            pivot = G.synthesis(gen_params, ws, cam, det=True)["image"]
+            save_image_grid(os.path.join(out_dir, f"{name}_pivot.png"),
+                            torch.cat([img, pivot.float()]))
+        if gen_video:
+            # The pivot's orbit, before tuning (single_id_coach.py:57-62).
+            gen_interp_video(G, gen_params, ws,
+                             os.path.join(out_dir, f"{name}_pivot.mp4"),
+                             num_frames=60, batch=4)
         if pil or evaluate is not None:
             final = G.synthesis(tuned, ws, cam, det=True)["image"].float()
         if pil:
-            from tgi_torch.utils.image import save_image_grid
-            if save_pivot:
-                pivot = G.synthesis(gen_params, ws, cam, det=True)["image"]
-                save_image_grid(os.path.join(out_dir, f"{name}_pivot.png"),
-                                torch.cat([img, pivot.float()]))
             save_image_grid(os.path.join(out_dir, f"{name}.png"),
                             torch.cat([img, final]))
     save_checkpoint(os.path.join(out_dir, f"{name}_G.pt"), tuned,
                     config=G.cfg)
+    if gen_video:
+        gen_interp_video(G, tuned, ws, os.path.join(out_dir, f"{name}.mp4"),
+                         num_frames=60, batch=4)
+    if gen_mesh:
+        from tgi_torch.apps.shape import extract_mesh
+        extract_mesh(G, tuned, ws, resolution=256,
+                     out_ply=os.path.join(out_dir, f"{name}.ply"))
     entry = {"image": name, "pti_steps": int(info["steps"]),
              "final_lpips": float(info["final_lpips"]),
              "sec": round(time.time() - t0, 2)}
+    if tb is not None:
+        tb.scalars({k: v for k, v in entry.items() if k != "image"}, step,
+                   prefix=f"{name}/")
+        tb.flush()
     if evaluate is not None:
         entry.update(evaluate(final, img))
         with open(os.path.join(out_dir, f"{name}metrics.txt"), "w") as f:
@@ -177,7 +214,7 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
             arcface_params=None,
             alex_params=None, alex_head=None, lpips_type="alex",
             use_locality_reg=False, camera_mode="quat", first_inv_steps=400,
-            max_pti_steps=400, gen_video=False, gen_mesh=False,
+            max_pti_steps=400, gen_video=True, gen_mesh=False,
             do_evaluation=False, save_pivot=True, use_last_w_pivots=False,
             visualize_opt=False, tensorboard=False, use_wandb=False,
             seed=0, batch=1, device=None):
@@ -198,7 +235,11 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
     not used, as pSp2.forward never adds it (e4e/psp.py:47-64).
     ``do_evaluation`` writes each image's metrics
     (:func:`evaluate_reconstruction`), the ID similarity with
-    ``arcface_params``.
+    ``arcface_params``. ``gen_video`` (on by default, as in ``tgi``;
+    it needs imageio), ``gen_mesh`` and ``visualize_opt`` add those
+    outputs (:func:`invert_one`); ``use_locality_reg`` tunes
+    with the locality regulariser, its z drawn with the render's draws;
+    ``tensorboard`` and ``use_wandb`` mirror the metrics.
     """
     from tgi_torch.invert.coach import CoachConfig, PTICoach
     from tgi_torch.invert.projector import Projector, ProjectorConfig
@@ -208,16 +249,13 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
     from tgi_torch.utils.image import load_image
 
     device = device or default_device()
-    for flag, what, item in ((gen_video, "gen_video (orbit videos)", 11),
-                             (gen_mesh, "gen_mesh (apps/shape.py)", 11),
-                             (use_locality_reg, "losses/locality.py", 8),
-                             (visualize_opt,
-                              "visualize_opt (utils/opt_viz.py)", 7),
-                             (tensorboard, "tensorboard", 9),
-                             (use_wandb, "wandb", 9),
-                             (batch > 1, "batch > 1 (tune_batch)", 18)):
-        if flag:
-            raise _not_ported(what, item)
+    if batch > 1:
+        raise _not_ported("batch > 1 (tune_batch)", 18)
+    if gen_video and importlib.util.find_spec("imageio") is None:
+        # tgi would find out after both stages, at the first video.
+        raise ImportError("gen_video writes orbit videos with imageio, "
+                          "which is not installed: install it, or pass "
+                          "gen_video=False (--no-video)")
     os.makedirs(out_dir, exist_ok=True)
     weights = torch.Generator().manual_seed(seed)
     if pose_params is None:
@@ -242,7 +280,26 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
     lp = make_lpips(lpips_type, vgg_params=vgg_params, vgg_head=lpips_head,
                     alex_params=alex_params, alex_head=alex_head,
                     generator=weights, device=device)
-    coach = PTICoach(G, lp, CoachConfig(max_pti_steps=max_pti_steps))
+    locality = None
+    if use_locality_reg:
+        # hyperparameters.py:9 use_locality_regularization; the coach
+        # passes each image's pivot camera.
+        from tgi_torch.losses.locality import SpaceRegularizer
+        locality = SpaceRegularizer(G, gen_params, lp)
+    coach = PTICoach(G, lp, CoachConfig(max_pti_steps=max_pti_steps),
+                     locality_regularizer=locality)
+    tb = None
+    if tensorboard:
+        from tgi_torch.utils.opt_viz import TBWriter
+        tb = TBWriter(os.path.join(out_dir, "tb"))
+    if use_wandb:
+        # base_coach.py:107-115 / log_utils.py:9-21 (offline by default).
+        from tgi_torch.utils.opt_viz import FanoutWriter, WandbWriter
+        wb = WandbWriter(project="tgi-pti",
+                         config=dict(first_inv_steps=first_inv_steps,
+                                     max_pti_steps=max_pti_steps,
+                                     camera_mode=camera_mode))
+        tb = wb if tb is None else FanoutWriter([tb, wb])
     generator = torch.Generator(device=device).manual_seed(seed)
     evaluate = None
     if do_evaluation:
@@ -250,21 +307,33 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
             return evaluate_reconstruction(final, img, lp, arcface_params)
 
     results = []
-    for path in list_images(image_dir):
-        name = os.path.splitext(os.path.basename(path))[0]
-        # load_image gives a transposed (channels-last) view; contiguous
-        # NCHW tensors keep the CPU convolutions on their plain path.
-        img = torch.from_numpy(np.ascontiguousarray(
-            load_image(path, size=G.cfg.img_resolution)))
-        target_255 = torch.from_numpy(np.ascontiguousarray(
-            (load_image(path, size=256) + 1) * 127.5))
-        entry, _, _ = invert_one(
-            name, img.to(device), G=G, gen_params=gen_params, coach=coach,
-            out_dir=out_dir, projector=projector,
-            target_255=target_255.to(device),
-            use_last_w_pivots=use_last_w_pivots, save_pivot=save_pivot,
-            generator=generator, evaluate=evaluate)
-        results.append(entry)
+    try:
+        for path in list_images(image_dir):
+            name = os.path.splitext(os.path.basename(path))[0]
+            # load_image gives a transposed (channels-last) view; contiguous
+            # NCHW tensors keep the CPU convolutions on their plain path.
+            img = torch.from_numpy(np.ascontiguousarray(
+                load_image(path, size=G.cfg.img_resolution)))
+            target_255 = torch.from_numpy(np.ascontiguousarray(
+                (load_image(path, size=256) + 1) * 127.5))
+            snapshot_fn = None
+            if visualize_opt:
+                from tgi_torch.utils.opt_viz import (
+                    make_projection_snapshotter)
+                snapshot_fn = make_projection_snapshotter(projector, out_dir,
+                                                          name, tb=tb)
+            entry, _, _ = invert_one(
+                name, img.to(device), G=G, gen_params=gen_params,
+                coach=coach, out_dir=out_dir, projector=projector,
+                target_255=target_255.to(device),
+                use_last_w_pivots=use_last_w_pivots, save_pivot=save_pivot,
+                generator=generator, evaluate=evaluate, gen_video=gen_video,
+                gen_mesh=gen_mesh, snapshot_fn=snapshot_fn, tb=tb,
+                step=len(results))
+            results.append(entry)
+    finally:
+        if tb is not None:
+            tb.close()
     with open(os.path.join(out_dir, "results.json"), "w") as f:
         json.dump(results, f, indent=1)
     return results
@@ -340,8 +409,8 @@ def validate_aux(pose_params=None, vgg_params=None, lpips_head=None,
 
 def main(argv=None):
     """Command line: ``python -m tgi_torch.apps.run_pti --network G.pt
-    --images DIR --outdir DIR``. The options mirror ``tgi``'s; those of
-    parts not ported yet raise when set."""
+    --images DIR --outdir DIR``. The options mirror ``tgi``'s; ``--batch``
+    above 1 is not ported yet and raises."""
     import click
 
     @click.command()
@@ -369,7 +438,8 @@ def main(argv=None):
     @click.option("--lpips-type", default="alex",
                   type=click.Choice(["alex", "vgg"]),
                   help="stage-2 tuning loss backbone (hyperparameters.py:2)")
-    @click.option("--use-locality-reg/--no-locality-reg", default=False)
+    @click.option("--use-locality-reg/--no-locality-reg", default=False,
+                  help="Space_Regulizer during tuning (hyperparameters.py:9)")
     @click.option("--allow-random-init", is_flag=True, default=False,
                   help="permit random init when weight files are absent "
                        "(smoke tests only — outputs are garbage)")
@@ -384,12 +454,18 @@ def main(argv=None):
                   default=False,
                   help="reload saved (ws, cam) pivots instead of running "
                        "stage 1 (base_coach.py:69-77)")
-    @click.option("--video/--no-video", "gen_video", default=False)
-    @click.option("--mesh/--no-mesh", "gen_mesh", default=False)
+    @click.option("--video/--no-video", "gen_video", default=True,
+                  help="orbit videos of the pivot and the tuned generator")
+    @click.option("--mesh/--no-mesh", "gen_mesh", default=False,
+                  help="the tuned generator's mesh at 256³, {name}.ply")
     @click.option("--eval/--no-eval", "do_evaluation", default=False)
-    @click.option("--visualize-opt/--no-visualize-opt", default=False)
-    @click.option("--tensorboard/--no-tensorboard", default=False)
-    @click.option("--wandb/--no-wandb", "use_wandb", default=False)
+    @click.option("--visualize-opt/--no-visualize-opt", default=False,
+                  help="reconstruction and warp PNGs every 10 projection "
+                       "steps (w_projector.py:193-212)")
+    @click.option("--tensorboard/--no-tensorboard", default=False,
+                  help="mirror metrics and images to <outdir>/tb")
+    @click.option("--wandb/--no-wandb", "use_wandb", default=False,
+                  help="mirror metrics and images to wandb (offline mode)")
     @click.option("--seed", default=0,
                   help="draws of both stages, and the weights of every "
                        "network without a weight file")

@@ -28,7 +28,7 @@ from tgi_torch.nn.synthesis import (SynthesisConfig, block_dtype,
                                     synthesis_network_init)
 from tgi_torch.render.decoder import osg_decoder_init
 from tgi_torch.render.rays import ray_sampler
-from tgi_torch.render.renderer import importance_render
+from tgi_torch.render.renderer import importance_render, run_model
 from tgi_torch.utils.shapes import assert_shape
 
 
@@ -215,6 +215,24 @@ class TriPlaneGenerator:
             max_res=sr_max_res)
         return {"image": sr_image, "image_raw": rgb_image,
                 "image_depth": depth_image, "planes": planes}
+
+    def sample_mixed(self, params, coordinates, ws, *, noise_mode="const",
+                     planes=None):
+        """sigma and rgb at arbitrary 3D points ``coordinates`` [N, M, 3]
+        from ``ws`` (triplane.py:101-105); the shape-extraction path.
+        The planes (``planes`` skips the backbone) are sampled in
+        float32."""
+        if planes is None:
+            planes = self.backbone_planes(params, ws, noise_mode=noise_mode)
+        return run_model(planes.float(), params["decoder"], coordinates,
+                         self.cfg.rendering_kwargs)
+
+    def sample(self, params, coordinates, z, c, truncation_psi=1.0,
+               **kwargs):
+        """sigma and rgb at arbitrary 3D points from z
+        (triplane.py:92-99)."""
+        ws = self.mapping(params, z, c, truncation_psi=truncation_psi)
+        return self.sample_mixed(params, coordinates, ws, **kwargs)
 
     def __call__(self, params, z, c, truncation_psi=1.0,
                  truncation_cutoff=None, **synthesis_kwargs):
