@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. environment: versions, the card, its power limit;
+  1. environment: versions, the card, its power limit, which optional
+     modules (Pillow, click, imageio, scipy) import;
   2. build every CUDA kernel from tgi_torch/csrc with nvcc;
   3. each kernel against its plain PyTorch version, at the full-width
      shapes (uniform points, and a ray-ordered frustum march, some of
@@ -125,6 +126,26 @@ splats) timed beside one without (2 and 2); (e) ``compute_pca`` at
 100,000 samples, the basis read back by ``load_components``, and the
 "smile" edit rendered.
 
+Phase 14 drives GAN training (``train_gan`` -> ``training_loop`` ->
+``GANTrainer.train_step``) at ``tgi``'s default configuration, EG3D's
+FFHQ 512 training setup: the bf16 generator (64² rays, 48 + 48 samples,
+SR 64->512), the dual discriminator at 512², batch 4, R1 gamma 1, the
+density regulariser, the blur fade from sigma 10, ADA, EMA. (a) 16
+renders of the seed-2 generator at a yaw and pitch grid written as
+``.npy`` images with their labels and read back through
+``ImageFolderDataset`` with xflip; (b) 8 steps (greg on steps 0 and 4,
+R1 on step 0, ADA p from 0.2) with a tick, a checkpoint and, where
+Pillow imports, an image grid every 4 steps, then a resume from the
+checkpoint for one step: finite losses, signs_real in [-1, 1], G and D
+moved, the EMA lagging, the tick records, 4 gathers and 2 splats a
+plain step and 5 and 3 with the density regulariser; step times (CUDA
+events), peak memory and s/kimg, and warm plain, greg, R1 and greg + R1
+steps; (c) one G phase plus the density regulariser at full width
+through the kernels and through the plain sampler (per group within
+BF16_GRAD_TOL), and the regulariser's 4 x 2,000 points, most of them
+outside the box, through the gather and the splat against their plain
+versions; (d) a tiny ``train_step`` on the card against the CPU.
+
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the tgi_torch package beside it, the
@@ -243,6 +264,10 @@ def phase_environment(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmul and cuDNN")
+    import importlib.util
+    log("optional modules: " + ", ".join(
+        f"{m} {'imports' if importlib.util.find_spec(m) else 'absent'}"
+        for m in ("PIL", "click", "imageio", "scipy")))
     bw = next(rate for key, rate in HBM_BYTES_PER_S if key in name)
     return name, card, bw
 
@@ -2092,6 +2117,471 @@ def phase_outputs(torch, gs, G, params, st, tmp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: GAN training at full width (train_gan, training_loop,
+# GANTrainer.train_step) through the gather and splat kernels.
+
+TRAIN_IMAGES = 16          # dataset images (32 with their mirrors)
+TRAIN_STEPS = 8            # steps of the first run; the resume takes one
+TRAIN_BATCH = 4            # one of EG3D's 8 GPUs in its published run
+# Launches per training step (gather, splat): the G phase's render forward
+# and backward, the D phase's render of the fakes without autograd, and
+# the density regulariser's one sample_mixed forward and backward.
+STEP_LAUNCHES = {"plain": (4, 2), "greg": (5, 3)}
+# Tiny train_step, card vs CPU (fp32, TF32 off): metrics within this
+# relative error.
+TRAIN_CPU_TOL = 1e-4
+
+
+def phase_train_dataset(torch, tmp):
+    """a. The dataset: TRAIN_IMAGES renders of the seed-2 full-width
+    generator at a 4 x 4 grid of yaw and pitch, written as ``.npy``
+    images (readable without Pillow) with their 25-float labels in
+    dataset.json, then read back through ``ImageFolderDataset`` with
+    xflip."""
+    import numpy as np
+    from tgi_torch.render.cameras import (fov_to_intrinsics, look_at_pose,
+                                          pack_camera)
+    from tgi_torch.scripts import selfinv_gate
+    from tgi_torch.train.dataset import ImageFolderDataset
+    t0 = time.perf_counter()
+    G, params = selfinv_gate.full_width_generator(DEVICE, seed=2)
+    yaw, pitch = torch.meshgrid(torch.linspace(-0.4, 0.4, 4),
+                                torch.linspace(-0.2, 0.2, 4), indexing="ij")
+    cam = look_at_pose(math.pi / 2 + yaw.flatten(),
+                       math.pi / 2 + pitch.flatten(),
+                       torch.tensor([0, 0, 0.2], device=DEVICE), radius=2.7,
+                       device=DEVICE)
+    c = pack_camera(cam, fov_to_intrinsics(18.837, device=DEVICE))
+    z = torch.randn(TRAIN_IMAGES, G.cfg.z_dim,
+                    generator=torch.Generator().manual_seed(5)).to(DEVICE)
+    data = os.path.join(tmp, "train_data")
+    os.makedirs(data)
+    labels, images = [], []
+    with torch.no_grad():
+        for i in range(0, TRAIN_IMAGES, 4):
+            img = G(params, z[i:i + 4], c[i:i + 4], truncation_psi=0.7,
+                    det=True)["image"].clamp(-1, 1)
+            images += list(img.cpu().numpy())
+    for i, (img, label) in enumerate(zip(images, c.cpu().numpy())):
+        np.save(os.path.join(data, f"img{i:02d}.npy"), img)
+        labels.append([f"img{i:02d}.npy", label.tolist()])
+    with open(os.path.join(data, "dataset.json"), "w") as f:
+        json.dump({"labels": labels}, f)
+    del G, params
+    ds = ImageFolderDataset(data, resolution=images[0].shape[-1], xflip=True)
+    img0, label0 = ds[0]
+    flip0, flip_label0 = ds[TRAIN_IMAGES]
+    check(len(ds) == 2 * TRAIN_IMAGES and np.array_equal(img0, images[0])
+          and np.array_equal(flip0, images[0][:, :, ::-1])
+          and np.array_equal(label0, c[0].cpu().numpy())
+          and not np.array_equal(flip_label0, label0),
+          "the dataset does not read back its images, mirrors and labels")
+    log(f"train dataset: {TRAIN_IMAGES} renders at {images[0].shape[-1]}² "
+        f"(seed-2 generator, "
+        f"yaw and pitch grid) as .npy with labels, {len(ds)} with mirrors, "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return data
+
+
+class step_recorder:
+    """Inside the block, every ``GANTrainer.train_step`` is timed with
+    CUDA events and its launches, phase flags and metrics recorded."""
+
+    def __init__(self, torch, gs):
+        self.torch, self.gs, self.records = torch, gs, []
+
+    def __enter__(self):
+        from tgi_torch.train.gan import GANTrainer
+        self.cls, self.real = GANTrainer, GANTrainer.train_step
+        torch, gs, records, real = self.torch, self.gs, self.records, \
+            self.real
+
+        def timed(trainer, state, z, c, real_img, rng, cur_nimg, do_greg,
+                  do_dreg, ada_p=0.0):
+            before = counts(gs)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = real(trainer, state, z, c, real_img, rng, cur_nimg,
+                       do_greg, do_dreg, ada_p)
+            ev[1].record()
+            ev[1].synchronize()
+            after = counts(gs)
+            records.append(dict(
+                cur_nimg=cur_nimg, greg=do_greg, r1=do_dreg, ada_p=ada_p,
+                ms=ev[0].elapsed_time(ev[1]),
+                gathers=after["triplane_gather"] - before["triplane_gather"],
+                splats=after["triplane_splat"] - before["triplane_splat"],
+                metrics={k: float(v) for k, v in out[1].items()}))
+            return out
+
+        GANTrainer.train_step = timed
+        return self.records
+
+    def __exit__(self, *exc):
+        self.cls.train_step = self.real
+
+
+def phase_train_gan(torch, gs, data, tmp):
+    """b. ``train_gan`` at tgi's default configuration (EG3D FFHQ 512,
+    bf16 generator, dual discriminator, batch 4, ADA from p = 0.2) for
+    TRAIN_STEPS steps with a tick, a checkpoint and (where Pillow
+    imports) an image grid every 4 steps, then a resume from the last
+    checkpoint for one step. Every count is set to 0 just before and read
+    just after (the slice's main path)."""
+    import numpy as np
+    from tgi_torch.apps.train_gan import train_gan, training_configs
+    from tgi_torch.train.augment import AugmentPipe
+    from tgi_torch.train.gan import (GANTrainer, _leaves, init_train_state)
+    try:
+        import PIL  # noqa: F401
+        grids = 1
+    except ImportError:
+        grids = 0
+    run, run2 = os.path.join(tmp, "train_run"), os.path.join(tmp, "resume")
+    tick_kimg = 4 * TRAIN_BATCH / 1000
+    common = dict(batch_size=TRAIN_BATCH, kimg_per_tick=tick_kimg,
+                  snapshot_ticks=1, augment_p=0.2, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    zero_counts(gs)
+    with step_recorder(torch, gs) as records:
+        state = train_gan(data, run, total_kimg=TRAIN_STEPS * TRAIN_BATCH
+                          / 1000, image_snapshot_ticks=grids, **common)
+        ckpt = os.path.join(run, "network-000000.ckpt")
+        resumed = train_gan(data, run2, resume_ckpt=ckpt,
+                            total_kimg=(TRAIN_STEPS + 1) * TRAIN_BATCH / 1000,
+                            image_snapshot_ticks=0, **common)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(gs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    files = sorted(os.listdir(run))
+    log(f"train_gan: {len(records)} steps ({TRAIN_STEPS} + 1 resumed) in "
+        f"{wall:.1f} s, launches {launches}, peak memory {peak:.2f} GiB; "
+        f"files {files}; image grid "
+        f"{'written (Pillow imports)' if grids else 'off: no Pillow'}")
+    for i, r in enumerate(records):
+        log(f"  step {i}: cur_nimg {r['cur_nimg']} greg {r['greg']} R1 "
+            f"{r['r1']} ada_p {r['ada_p']:.6g}: {r['ms']:.1f} ms, "
+            f"{r['gathers']} gathers, {r['splats']} splats, {r['metrics']}")
+    check(len(records) == TRAIN_STEPS + 1,
+          f"{len(records)} training steps, expected {TRAIN_STEPS + 1}")
+    check([r["greg"] for r in records] == [i % 4 == 0 for i in range(9)]
+          and [r["r1"] for r in records] == [i == 0 for i in range(9)],
+          "greg on steps 0, 4 and 8 and R1 on step 0 expected")
+    check(records[8]["cur_nimg"] == TRAIN_STEPS * TRAIN_BATCH,
+          "the resumed step did not start from the checkpoint's cur_nimg")
+    check(all(r["ada_p"] > 0.19 for r in records),
+          "the augment pipe's p left 0.2 in 9 steps")
+    for i, r in enumerate(records):
+        m = r["metrics"]
+        check(all(math.isfinite(v) for v in m.values()),
+              f"step {i}: a loss is not finite: {m}")
+        check(-1 <= m["signs_real"] <= 1, f"step {i}: signs_real {m}")
+        want = STEP_LAUNCHES["greg" if r["greg"] else "plain"]
+        check((r["gathers"], r["splats"]) == want,
+              f"step {i}: {r['gathers']} gathers and {r['splats']} splats, "
+              f"expected {want}")
+    check(launches["triplane_splat_sorted"] == 0
+          and launches["triplane_gather"] >= sum(r["gathers"]
+                                                 for r in records),
+          f"launches {launches}")
+    with open(os.path.join(run, "stats.jsonl")) as f:
+        ticks = [json.loads(line) for line in f if '"g_loss"' in line]
+    check([t["kimg"] for t in ticks] == [tick_kimg, 2 * tick_kimg],
+          f"tick records {ticks}")
+    check("network-000000.ckpt" in files
+          and ("fakes-000000.png" in files) == bool(grids),
+          f"run files {files}")
+    G, d_cfg, cfg = training_configs(batch_size=TRAIN_BATCH)
+    trainer = GANTrainer(G, d_cfg, cfg, augment_fn=AugmentPipe())
+    init = init_train_state(torch.Generator().manual_seed(0), G, d_cfg,
+                            trainer, device=DEVICE)
+    moved = {}
+    for name in ("g_params", "d_params"):
+        moved[name] = max((a.detach() - b.detach()).abs().max().item()
+                          for (_, a), (_, b) in zip(_leaves(state[name]),
+                                                    _leaves(init[name])))
+    ema_lag = max((a - b.detach()).abs().max().item()
+                  for (_, a), (_, b) in zip(_leaves(state["g_ema"]),
+                                            _leaves(state["g_params"])))
+    ema_moved = max((a - b.detach()).abs().max().item()
+                    for (_, a), (_, b) in zip(_leaves(state["g_ema"]),
+                                              _leaves(init["g_params"])))
+    log(f"weights moved (max |Δ| over leaves): G {moved['g_params']:.4g}, D "
+        f"{moved['d_params']:.4g}; g_ema moved {ema_moved:.4g} and lags G by "
+        f"{ema_lag:.4g}")
+    check(moved["g_params"] > 0 and moved["d_params"] > 0,
+          f"weights did not move: {moved}")
+    check(0 < ema_lag and 0 < ema_moved, "g_ema does not lag G")
+    del init
+    plain = [r["ms"] for r in records[1:] if not r["greg"]]
+    greg = [r["ms"] for r in records[1:] if r["greg"]]
+    times = {"plain_step_ms": statistics.median(plain),
+             "greg_step_ms": statistics.median(greg),
+             "r1_greg_step_ms_first": records[0]["ms"],
+             "plain_steps_ms": plain, "greg_steps_ms": greg,
+             "peak_gib": peak, "sec_per_kimg": ticks[-1]["sec_per_kimg"],
+             "wall_s": wall}
+    return dict(state=resumed, launches=launches, times=times,
+                records=records, grids=bool(grids))
+
+
+def phase_train_step_times(torch, gs, state, steps=3):
+    """b. Warm step times at the same configuration on the resumed state
+    (CUDA events, median of ``steps``): plain, with the density
+    regulariser, and with both it and R1 (every R1 step of the schedule,
+    1 in 16, is also one of the regulariser's, 1 in 4); and, forward
+    only, the blur at its first sigma and one augment-pipe call."""
+    from tgi_torch.apps.train_gan import training_configs
+    from tgi_torch.nn.discriminator import filtered_resizing
+    from tgi_torch.train.augment import AugmentPipe
+    from tgi_torch.train.gan import GANTrainer, _blur
+    from tgi_torch.utils.draws import TorchDraws
+    G, d_cfg, cfg = training_configs(batch_size=TRAIN_BATCH)
+    trainer = GANTrainer(G, d_cfg, cfg, augment_fn=AugmentPipe())
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    batch = _train_batch(torch, gen, G)
+    out = {}
+    with step_recorder(torch, gs) as records:
+        for name, greg, r1 in (("plain", False, False), ("greg", True, False),
+                               ("greg_r1", True, True)):
+            records.clear()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(steps):
+                trainer.train_step(state, *batch, gen, cur_nimg=40,
+                                   do_greg=greg, do_dreg=r1, ada_p=0.2)
+            out[name] = statistics.median(r["ms"] for r in records)
+            out[name + "_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2 ** 30)
+    img = batch[2]
+    raw = filtered_resizing(img, cfg.neural_rendering_resolution_initial)
+    sigma = cfg.blur_init_sigma
+    with torch.no_grad():
+        out["blur_ms"] = cuda_ms(torch, lambda: (
+            _blur(img, sigma, int(sigma * 3)),
+            _blur(raw, sigma, int(sigma * 3))), iters=10)
+        out["augment_pipe_ms"] = cuda_ms(torch, lambda: trainer.augment_fn(
+            img, raw, TorchDraws(gen), 0.2), iters=10)
+    log(f"train step, warm (median of {steps}, CUDA events): {out}; the "
+        f"blur at sigma {sigma} ({2 * int(sigma * 3) + 1} taps) of a 512² "
+        f"batch and its 64² raw images, and one augment-pipe call on them, "
+        f"forward only (median of 10)")
+    return out
+
+
+def _train_batch(torch, gen, G, N=TRAIN_BATCH):
+    """(z, c, real images) on the card: latents and images from ``gen``,
+    cameras at the FFHQ pivot turned by N yaws."""
+    z = torch.randn(N, G.cfg.z_dim, generator=gen, device=DEVICE)
+    c = torch.cat([_camera(torch, 0.2 * i - 0.3) for i in range(N)])
+    real = torch.rand(N, 3, G.cfg.img_resolution, G.cfg.img_resolution,
+                      generator=gen, device=DEVICE) * 2 - 1
+    return z, c, real
+
+
+def phase_train_grads_vs_plain(torch, gs, state):
+    """c. One G phase plus the density regulariser at full width (the
+    trained state, the same draws each time) through the kernels, again,
+    and through the plain sampler, with deterministic cuDNN algorithms:
+    per group (mapping, backbone, decoder, SR) ||Δ||_2 <= BF16_GRAD_TOL
+    ||plain||_2."""
+    import tgi_torch.render.renderer as renderer
+    from tgi_torch.apps.train_gan import training_configs
+    from tgi_torch.train.augment import AugmentPipe
+    from tgi_torch.train.gan import GANTrainer, _grads, _leaves, _map
+    from tgi_torch.utils.draws import TorchDraws
+    G, d_cfg, cfg = training_configs(batch_size=TRAIN_BATCH)
+    trainer = GANTrainer(G, d_cfg, cfg, augment_fn=AugmentPipe())
+    g, d = state["g_params"], _map(torch.Tensor.detach, state["d_params"])
+    batch = _train_batch(torch, torch.Generator(device=DEVICE).manual_seed(4),
+                         G)
+    blur_sigma, sp, res, _ = trainer._schedules(36)
+    names = [".".join(p) for p, _ in _leaves(g)]
+
+    def grads(sampler=None):
+        draws = TorchDraws(torch.Generator(device=DEVICE).manual_seed(6))
+        k_g, k_greg = draws.split(2)
+        renderer.sample_triplanes = sampler or gs.sample_triplanes
+        try:
+            loss = trainer.gmain_loss(g, d, *batch[:2], k_g, blur_sigma,
+                                      int(blur_sigma * 3), sp, res, 0.2)
+            reg = trainer.greg_loss(g, *batch[:2], k_greg, sp)
+            total = [a + cfg.g_reg_interval * b for a, b in
+                     zip(_grads(loss, g), _grads(reg, g))]
+            torch.cuda.synchronize()
+            return dict(zip(names, total)), loss.item(), reg.item()
+        finally:
+            renderer.sample_triplanes = gs.sample_triplanes
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        zero_counts(gs)
+        kernel, loss_k, reg_k = grads()
+        per = counts(gs)
+        again, _, _ = grads()
+        before = counts(gs)
+        plain, loss_p, reg_p = grads(gs.sample_triplanes_plain)
+        check(counts(gs) == before, "the plain sampler launched a kernel")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(per["triplane_gather"] == 3 and per["triplane_splat"] == 3,
+          f"a G phase plus greg launched {per}, expected 3 gathers and 3 "
+          f"splats")
+    errs = {}
+    for group in ("mapping", "backbone", "decoder", "superresolution"):
+        err, scale = _group_err(torch, kernel, plain, group)
+        err2, _ = _group_err(torch, again, kernel, group)
+        log(f"G phase + greg gradient of {group}: norm {scale:.4g}; kernels "
+            f"vs plain sampler: norm err {err:.3g}; kernels twice: "
+            f"{err2:.3g}")
+        check(math.isfinite(scale) and scale > 0,
+              f"the G phase gives {group} no gradient")
+        check(err <= BF16_GRAD_TOL, f"{group}: kernels vs plain {err} > "
+              f"{BF16_GRAD_TOL}")
+        errs[group] = err
+    log(f"G phase + greg losses, kernels / plain: gmain {loss_k:.6g} / "
+        f"{loss_p:.6g}, greg {reg_k:.6g} / {reg_p:.6g}")
+    return errs
+
+
+def phase_density_points_vs_plain(torch, gs, state):
+    """c. The density regulariser's own points: 4 x 1000 uniform in
+    [-1, 1]³ and their N(0, 0.004) twins (4 x 2,000), on the trained
+    generator's planes, through the gather and the splat (with and
+    without ``d_coords``) against their plain versions at phase 3's
+    tolerances. With box_warp 1 the box is [-0.5, 0.5]³, so most points
+    lie outside it: the kernels must give zero there as plain does."""
+    from tgi_torch.apps.train_gan import training_configs
+    G, _, cfg = training_configs(batch_size=TRAIN_BATCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    n = cfg.density_reg_samples
+    rk = G.cfg.rendering_kwargs
+    z = torch.randn(TRAIN_BATCH, G.cfg.z_dim, generator=gen, device=DEVICE)
+    c = torch.cat([_camera(torch, 0.1 * i) for i in range(TRAIN_BATCH)])
+    pts = torch.rand(TRAIN_BATCH, n, 3, generator=gen, device=DEVICE) * 2 - 1
+    pts = torch.cat([pts, pts + torch.randn(pts.shape, generator=gen,
+                                            device=DEVICE)
+                     * rk["density_reg_p_dist"]], dim=1).contiguous()
+    with torch.no_grad():
+        planes = G.backbone_planes(state["g_params"],
+                                   G.mapping(state["g_params"], z, c))
+    planes_hwc = planes.float().permute(0, 1, 3, 4, 2).contiguous()
+    planes_cl = planes_hwc.permute(0, 1, 4, 2, 3)     # [N, 3, C, H, W] view
+    box = rk["box_warp"]
+    outside = (pts.abs() > box / 2).any(dim=-1)
+    twins_out = outside[:, n:] & ~outside[:, :n]
+    got = gs.sample_triplanes_cuda(planes_cl, pts, box)
+    want = gs.sample_triplanes_plain(planes_cl, pts, box)
+    g = torch.randn(got.shape, generator=gen, device=DEVICE)
+    errs = {"gather": (got - want).abs().max().item()}
+    check(errs["gather"] <= KERNEL_TOL,
+          f"density points: gather vs plain {errs['gather']}")
+    # A plane's four corners all lie off it once a projected coordinate
+    # is a cell past the border: zero features there.
+    far = pts.abs() > (box / 2) * (1 + 2 / planes.shape[-1])
+    off = far[..., [0, 0, 2]] | far[..., [1, 2, 0]]    # [N, M, plane]
+    check(bool((got.permute(0, 2, 1, 3)[off] == 0).all()),
+          "the gather gave non-zero features off a plane")
+    for need in (False, True):
+        a = gs.triplane_splat_cuda(planes_hwc, pts, g, box, need)
+        b = gs.triplane_splat_plain(planes_hwc, pts, g, box, need)
+        for what, x, y in zip(("d_planes", "d_coords"), a, b):
+            if y is None:
+                continue
+            scale = max(1.0, y.abs().max().item())
+            err = (x - y).abs().max().item()
+            errs[f"{what}{'_with_coords' if need else ''}"] = err / scale
+            check(err <= SPLAT_TOL * scale, f"density points: splat {what} "
+                  f"(d_coords asked: {need}) {err} > {SPLAT_TOL} * {scale}")
+    torch.cuda.synchronize()
+    log(f"density-regulariser points ({TRAIN_BATCH} x {2 * n}): "
+        f"{int(outside.sum())} of {outside.numel()} outside the box "
+        f"({int(off.all(dim=-1).sum())} off all three planes) "
+        f"[-{box / 2}, {box / 2}]³, {int(twins_out.sum())} pushed out by "
+        f"the perturbation; kernels vs plain: {errs}")
+    return {"outside": int(outside.sum()), "pushed_out": int(twins_out.sum()),
+            "points": outside.numel(), **errs}
+
+
+def phase_train_tiny_vs_cpu(torch):
+    """d. One tiny-configuration ``train_step`` (greg and R1, the augment
+    pipe at p = 0.3, style mixing, the blur) on the card against the same
+    step on the CPU, the draws from one CPU generator placed on each
+    device; fp32, TF32 off: metrics within TRAIN_CPU_TOL relative,
+    updated weights within two Adam steps, and (Adam's first step moves
+    a weight by about lr whatever its gradient) the share of weights
+    whose update agrees within 1e-2 lr logged and held above 99 %."""
+    from tgi_torch.nn.discriminator import DiscriminatorConfig
+    from tgi_torch.train.augment import AugmentPipe
+    from tgi_torch.train.gan import (GANTrainConfig, GANTrainer, _leaves,
+                                     init_train_state)
+    from tgi_torch.utils.draws import TorchDraws
+    G, _ = _small_generator(torch)
+    d_cfg = DiscriminatorConfig(c_dim=25, img_resolution=64, img_channels=6,
+                                channel_base=512, channel_max=32,
+                                mbstd_group_size=2, mapping_layers=2)
+    cfg = GANTrainConfig(batch_size=2, blur_init_sigma=1.0,
+                         density_reg_samples=64, style_mixing_prob=0.5,
+                         neural_rendering_resolution_initial=16)
+    trainer = GANTrainer(G, d_cfg, cfg, augment_fn=AugmentPipe())
+    gen = torch.Generator().manual_seed(7)
+    z = torch.randn(2, 32, generator=gen)
+    real = torch.rand(2, 3, 64, 64, generator=gen) * 2 - 1
+    results = {}
+    for dev in ("cpu", DEVICE):
+        state = init_train_state(torch.Generator().manual_seed(2), G, d_cfg,
+                                 trainer, device=dev)
+        c = torch.cat([_camera(torch, y, dev) for y in (-0.2, 0.3)])
+        state, m = trainer.train_step(
+            state, z.to(dev), c, real.to(dev),
+            TorchDraws(torch.Generator().manual_seed(8), dev), cur_nimg=0,
+            do_greg=True, do_dreg=True, ada_p=0.3)
+        results[dev] = (state, {k: float(v) for k, v in m.items()})
+    init = init_train_state(torch.Generator().manual_seed(2), G, d_cfg,
+                            trainer, device="cpu")
+    (cpu, m_cpu), (card, m_card) = results["cpu"], results[DEVICE]
+    m_err = max(abs(m_card[k] - m_cpu[k]) / max(1.0, abs(m_cpu[k]))
+                for k in m_cpu)
+    agree, total, worst = 0, 0, 0.0
+    for name, lr in (("g_params", trainer.g_adam[0]),
+                     ("d_params", trainer.d_adam[0])):
+        for (_, a), (_, b), (_, s) in zip(_leaves(card[name]),
+                                          _leaves(cpu[name]),
+                                          _leaves(init[name])):
+            da = a.detach().cpu() - s.detach()
+            db = b.detach() - s.detach()
+            err = (da - db).abs()
+            agree += int((err <= 1e-2 * lr).sum())
+            total += err.numel()
+            worst = max(worst, err.max().item() / lr)
+    log(f"tiny train_step, card vs CPU: metrics {m_card} vs {m_cpu}, max "
+        f"relative err {m_err:.3g}; updates agreeing within 1e-2 lr "
+        f"{agree} of {total}, worst |Δ update| {worst:.3g} lr")
+    check(m_err <= TRAIN_CPU_TOL, f"tiny step metrics card vs CPU {m_err}")
+    check(worst <= 2 and agree >= 0.99 * total,
+          f"tiny step updates card vs CPU: {agree} of {total} agree, worst "
+          f"{worst} lr")
+    return {"metrics_rel_err": m_err, "updates_agree": agree / total}
+
+
+def phase_training(torch, gs, tmp):
+    """Phase 14, a-d."""
+    t0 = time.perf_counter()
+    data = phase_train_dataset(torch, tmp)
+    out = phase_train_gan(torch, gs, data, tmp)
+    out["warm"] = phase_train_step_times(torch, gs, out["state"])
+    out["grads"] = phase_train_grads_vs_plain(torch, gs, out["state"])
+    out["density"] = phase_density_points_vs_plain(torch, gs, out["state"])
+    out["tiny"] = phase_train_tiny_vs_cpu(torch)
+    del out["state"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 14 (training) in {out['seconds']:.1f} s")
+    return out
+
+
 def phase_forward_repeat(torch, G, params, st):
     """Which of stage 1's inputs and forwards repeat their bits when run
     twice: the target render, the w statistics of 5000 latents, and one
@@ -2764,6 +3254,7 @@ def bench_kernel_entries(times, errs, launches, check_launches, runs):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -2800,6 +3291,7 @@ def main():
         pti_eval = phase_run_pti_eval(torch, gs, G, params, enc, arc, tmp)
         del enc, arc
         outputs = phase_outputs(torch, gs, G, params, st, tmp)
+        training = phase_training(torch, gs, tmp)
     gather_times = phase_times(torch, gs, G, params, bw)
     _, seen = phase_step_times(torch, gs, params, st)
     splat_times = phase_splat_times(torch, gs, seen, bw)
@@ -2827,6 +3319,7 @@ def main():
         return run["stage1"][kernel] + run["stage2"][kernel]
 
     pack, mxu = runs["pack"], runs["mxu"]
+    log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": [{
         "name": "triplane_gather", "route": "cuda",
@@ -2862,7 +3355,9 @@ def main():
                              "run_pti_outputs": outputs["run_pti"][
                                  "launches"]["triplane_gather"],
                              "ganspace_edit": outputs["ganspace"][
-                                 "launches"]},
+                                 "launches"],
+                             "train_gan": training["launches"][
+                                 "triplane_gather"]},
         "max_abs_err": gather_err,
         "sample_mixed_chunk_max_abs_err": outputs["sample_mixed"][
             "max_abs_err"],
@@ -2890,7 +3385,9 @@ def main():
                              "run_pti_eval": pti_eval["launches"][
                                  "triplane_splat"],
                              "run_pti_outputs": outputs["run_pti"][
-                                 "launches"]["triplane_splat"]},
+                                 "launches"]["triplane_splat"],
+                             "train_gan": training["launches"][
+                                 "triplane_splat"]},
         "max_abs_err": splat_err, "max_rel_err": splat_rel,
         **splat_times, "check_shape_c16": small_splat}, {
         "name": "triplane_splat_sorted", "route": "cuda",
@@ -2931,7 +3428,17 @@ def main():
                              ("ms_per_frame", "peak_gib")},
             "run_pti": {k: outputs["run_pti"][k] for k in
                         ("wall_s", "video", "step_ms_locality", "step_ms")},
-            "pca_s": outputs["ganspace"]["pca_s"]}}),
+            "pca_s": outputs["ganspace"]["pca_s"]},
+        "train_gan": {"steps": training["times"],
+                      "warm_steps_ms": training["warm"],
+                      "image_grid": training["grids"],
+                      "launches_per_step": [
+                          [r["gathers"], r["splats"]]
+                          for r in training["records"]],
+                      "grad_norm_err_kernels_vs_plain": training["grads"],
+                      "density_points": training["density"],
+                      "tiny_step_card_vs_cpu": training["tiny"],
+                      "phase_s": training["seconds"]}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

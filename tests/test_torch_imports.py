@@ -100,3 +100,13 @@ def test_scan_covers_the_gate_modules():
             "tgi_torch.invert.bootstrap", "tgi_torch.invert.selfinv",
             "tgi_torch.scripts.selfinv_gate",
             "tgi_torch.scripts.selfinv_probe"} <= set(_modules())
+
+
+def test_scan_covers_the_training_modules():
+    """The scans above reach every module of the GAN-training slice."""
+    assert {"tgi_torch.train", "tgi_torch.train.gan",
+            "tgi_torch.train.loop", "tgi_torch.train.augment",
+            "tgi_torch.train.dataset", "tgi_torch.nn.discriminator",
+            "tgi_torch.utils.stats", "tgi_torch.utils.profiling",
+            "tgi_torch.utils.draws", "tgi_torch.apps.train_gan"} <= set(
+                _modules())

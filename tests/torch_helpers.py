@@ -149,6 +149,101 @@ def render_draws(key, N, M, D, D_importance):
             torch.from_numpy(np.array(u)))
 
 
+class _DrawLog:
+    """A draw source (``tgi_torch.utils.draws``) that notes each draw's
+    place in the key tree: ``path`` is the chain of (n, i) splits from
+    the root key. Its draws are ``table``'s, or stand-ins while the
+    table is empty."""
+
+    def __init__(self, log, table=None, path=()):
+        self.log, self.table, self.path = log, table, path
+
+    def split(self, n):
+        return [_DrawLog(self.log, self.table, self.path + ((n, i),))
+                for i in range(n)]
+
+    def _draw(self, kind, shape, *extra):
+        entry = (self.path, kind, tuple(shape), extra)
+        if self.table is not None:
+            return self.table[entry]
+        self.log.append(entry)
+        if kind == "randint":
+            return torch.randint(extra[0], extra[1], tuple(shape))
+        return torch.rand(tuple(shape))
+
+    def uniform(self, shape):
+        return self._draw("uniform", shape)
+
+    def normal(self, shape):
+        return self._draw("normal", shape)
+
+    def randint(self, shape, lo, hi):
+        return self._draw("randint", shape, lo, hi)
+
+
+def with_tgi_draws(key, fn):
+    """``fn(draws)`` with ``tgi``'s draws from ``key`` given as tensors.
+
+    ``fn`` runs once with stand-in draws to learn where in the key tree
+    it draws what (shapes never depend on the values), then again with
+    each draw computed by ``jax.random`` from the matching split of
+    ``key``, all in one jitted call: an eager ``jax.random`` call
+    compiles anew for each shape."""
+    log = []
+    fn(_DrawLog(log))
+    entries = tuple(dict.fromkeys(log))
+    values = _draws_fn(entries)(key)
+    table = {e: torch.from_numpy(np.array(v)) for e, v in zip(entries,
+                                                              values)}
+    return fn(_DrawLog(None, table))
+
+
+_DRAWS_FNS = {}
+
+
+def _draws_fn(entries):
+    """The jitted draws of ``entries`` (one compile per set of entries);
+    each split of the key tree is made once, and draws of one kind and
+    shape are made together over their stacked keys."""
+    if entries in _DRAWS_FNS:
+        return _DRAWS_FNS[entries]
+
+    def compute(root):
+        keys = {(): root}
+
+        def key_at(path):
+            if path not in keys:
+                n, i = path[-1]
+                keys[path] = jax.random.split(key_at(path[:-1]), n)[i]
+            return keys[path]
+
+        groups = {}
+        for j, (path, kind, shape, extra) in enumerate(entries):
+            groups.setdefault((kind, shape, extra), []).append(j)
+        out = [None] * len(entries)
+        for (kind, shape, extra), idx in groups.items():
+            ks = jnp.stack([key_at(entries[j][0]) for j in idx])
+            if kind == "randint":
+                vals = jax.vmap(lambda k: jax.random.randint(
+                    k, shape, *extra))(ks)
+            else:
+                draw = getattr(jax.random, kind)
+                vals = jax.vmap(lambda k: draw(k, shape))(ks)
+            for j, v in zip(idx, vals):
+                out[j] = v
+        return out
+
+    jitted = jit_ref(compute)
+
+    def run(root):
+        vals = jitted(root)
+        return [np.array(v).astype(np.int64) if e[1] == "randint"
+                else np.array(v) for e, v in zip(entries, vals)]
+
+    _DRAWS_FNS[entries] = run
+    return run
+
+
 def leaves_with_paths(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -289,3 +384,49 @@ def script_defs(path, **overrides):
     exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), ns)
     ns.update(overrides)
     return ns
+
+
+# tests/test_gan.py's discriminator: 64², channel_base 512, channel_max 32.
+TINY_D = dict(c_dim=25, img_resolution=64, img_channels=6, channel_base=512,
+              channel_max=32, mbstd_group_size=2, mapping_layers=2)
+# The trainer at tiny size: batch 2, 32 density points, style mixing and
+# the pose swap on (gpc faded in by 1 kimg), EMA without rampup. No blur:
+# tgi's ``_blur`` cannot be traced with taps.
+TINY_GAN = dict(batch_size=2, blur_init_sigma=0, density_reg_samples=32,
+                neural_rendering_resolution_initial=16,
+                style_mixing_prob=0.5, gpc_reg_fade_kimg=1.0,
+                ema_rampup=None)
+
+
+def gan_pair(augment=False, **over):
+    """(tgi trainer, its G and D params, port trainer, the same params as
+    CPU tensors): ``tiny_pair``'s generator, the tiny D drawn by the
+    port's init, both trainers with ``AugmentPipe`` where ``augment``
+    (it adds ~50 % to the compile of tgi's step)."""
+    from tgi.nn.discriminator import DiscriminatorConfig as JD
+    from tgi.train import augment as ja
+    from tgi.train.gan import GANTrainConfig as JCfg
+    from tgi.train.gan import GANTrainer as JTrainer
+    from tgi_torch.nn.discriminator import (DiscriminatorConfig,
+                                            discriminator_init)
+    from tgi_torch.train import augment as ta
+    from tgi_torch.train.gan import GANTrainConfig, GANTrainer
+    gj, pj, gt, pt = tiny_pair()
+    dt = discriminator_init(torch.Generator().manual_seed(1),
+                            DiscriminatorConfig(**TINY_D), device="cpu")
+    dj = jax.tree.map(lambda t: jnp.asarray(t.numpy()), dt)
+    kw = {**TINY_GAN, **over}
+    jt = JTrainer(gj, JD(**TINY_D), JCfg(**kw),
+                  augment_fn=ja.AugmentPipe() if augment else None)
+    tt = GANTrainer(gt, DiscriminatorConfig(**TINY_D), GANTrainConfig(**kw),
+                    augment_fn=ta.AugmentPipe() if augment else None)
+    return jt, pj, dj, tt, pt, dt
+
+
+def gan_inputs(N=2, seed=0):
+    """(z, c, real images) as numpy: two cameras, images in [-1, 1]."""
+    rng = np.random.RandomState(seed)
+    z = rng.randn(N, TINY["z_dim"]).astype(np.float32)
+    c = np.concatenate([tiny_camera(0.4 * i - 0.2) for i in range(N)])
+    real = rng.uniform(-1, 1, (N, 3, 64, 64)).astype(np.float32)
+    return z, c.astype(np.float32), real

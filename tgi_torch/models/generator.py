@@ -153,14 +153,17 @@ class TriPlaneGenerator:
             truncation_psi=truncation_psi,
             truncation_cutoff=truncation_cutoff)
 
-    def backbone_planes(self, params, ws, *, noise_mode="const",
-                        force_fp32=False):
+    def backbone_planes(self, params, ws, *, noise_mode="const", noise=None,
+                        generator=None, force_fp32=False):
         """ws -> tri-planes [N, 3, 32, 256, 256], float32
-        (triplane.py:71-76)."""
+        (triplane.py:71-76). ``noise`` / ``generator``: the per-layer
+        noise under ``noise_mode="random"`` (see
+        ``synthesis_network_apply``)."""
         cfg = self.cfg
         planes = synthesis_network_apply(params["backbone"], ws,
                                          cfg.backbone_cfg,
-                                         noise_mode=noise_mode,
+                                         noise_mode=noise_mode, noise=noise,
+                                         generator=generator,
                                          force_fp32=force_fp32)
         N = planes.shape[0]
         return planes.reshape(N, cfg.n_planes, cfg.plane_channels,
@@ -168,14 +171,19 @@ class TriPlaneGenerator:
 
     def synthesis(self, params, ws, c, *, neural_rendering_resolution=None,
                   noise_mode="const", det=True, generator=None, planes=None,
-                  sr_max_res=None, jitter=None, u=None, force_fp32=False):
+                  sr_max_res=None, jitter=None, u=None, noise=None,
+                  force_fp32=False):
         """Full render: ws [N, num_ws, 512], c [N, 25] ->
         {'image', 'image_raw', 'image_depth', 'planes'} (triplane.py:53-90).
 
         ``planes`` skips the backbone (the reference's cache_backbone /
         use_cached_backbone contract). ``generator`` drives the render's
-        random draws when ``det`` is False; ``jitter`` and ``u`` give
-        them as tensors instead (see ``importance_render``).
+        random draws when ``det`` is False, and the backbone's noise
+        under ``noise_mode="random"`` (``tgi``'s trainer); ``jitter``,
+        ``u`` (see ``importance_render``) and ``noise`` (see
+        ``synthesis_network_apply``) give them as tensors instead. The
+        super-resolution's noise stays the rendering kwargs'
+        ``superresolution_noise_mode``.
         ``sr_max_res`` truncates the SR pyramid (see
         superresolution_apply). ``force_fp32`` renders in float32 whatever
         ``fused_dtype`` says (``plane_dtype`` still applies, as in
@@ -193,6 +201,7 @@ class TriPlaneGenerator:
         ray_origins, ray_dirs = ray_sampler(cam2world, intrinsics, res)
         if planes is None:
             planes = self.backbone_planes(params, ws, noise_mode=noise_mode,
+                                          noise=noise, generator=generator,
                                           force_fp32=force_fp32)
 
         feature_samples, depth_samples, _ = importance_render(

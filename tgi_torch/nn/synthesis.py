@@ -12,8 +12,11 @@ blocks at ``fp16_resolution`` and above run their activations in bf16
 (the reference's fp16 blocks), with the weight and style
 pre-normalization and ``conv_clamp``; parameters, styles and the
 accumulated image stay float32. Noise modes: ``"const"`` (the stored
-``noise_const`` buffers) and ``"none"``; per-draw random noise waits for
-a later slice.
+``noise_const`` buffers), ``"none"``, and ``"random"``: a fresh
+``[N, 1, res, res]`` standard normal per layer, times the layer's
+``noise_strength``, drawn from a ``torch.Generator`` or given as a
+``noise`` dict keyed like the params (``{"b8": {"conv0": t, "conv1":
+t}, ...}``; :func:`random_noise` draws one in ``tgi``'s key order).
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ from tgi_torch.nn.layers import (fully_connected_apply, fully_connected_init,
 from tgi_torch.ops.bias_act import activation_funcs, bias_act
 from tgi_torch.ops.filters import setup_filter
 from tgi_torch.ops.upfirdn2d import upsample2d
+from tgi_torch.utils.draws import TorchDraws
 
 RESAMPLE_FILTER = setup_filter([1, 3, 3, 1])
-NOISE_MODES = ("const", "none")
+NOISE_MODES = ("const", "none", "random")
 
 
 def block_resolutions(img_resolution: int) -> list[int]:
@@ -112,12 +116,19 @@ def synthesis_layer_init(generator, in_channels, out_channels, w_dim,
 
 def synthesis_layer_apply(params, x, w, *, up=1, use_noise=True,
                           activation="lrelu", conv_clamp=None,
-                          noise_mode="const", gain=1.0):
+                          noise_mode="const", noise=None, gain=1.0):
+    """``noise``: the layer's ``[N, 1, res, res]`` draw under
+    ``noise_mode="random"``."""
     _check_noise_mode(noise_mode)
     styles = fully_connected_apply(params["affine"], w)
-    noise = None
-    if use_noise and noise_mode == "const":
+    if not use_noise or noise_mode == "none":
+        noise = None
+    elif noise_mode == "const":
         noise = params["noise_const"] * params["noise_strength"]
+    elif noise is None:
+        raise ValueError("noise_mode='random' needs the layer's noise")
+    else:
+        noise = noise * params["noise_strength"]
 
     x = modulated_conv2d(x, params["weight"], styles, noise=noise, up=up,
                          padding=params["weight"].shape[-1] // 2,
@@ -186,23 +197,27 @@ def block_dtype(fused_dtype, use_fp16, force_fp32=False):
 
 
 def synthesis_block_apply(params, x, img, ws, *, in_channels, conv_clamp=256,
-                          use_noise=True, noise_mode="const", up=2,
-                          dtype=torch.float32):
+                          use_noise=True, noise_mode="const", noise=None,
+                          up=2, dtype=torch.float32):
     """ws: [N, num_conv + 1, w_dim]. Returns (x, img): x in ``dtype``
-    (the block's, see ``block_dtype``), img float32.
+    (the block's, see ``block_dtype``), img float32. ``noise``: the
+    block's ``{"conv0": t, "conv1": t}`` under ``noise_mode="random"``.
 
     ``up=1`` is the SR 'NoUp' variant (superresolution.py:158-257)."""
     w_idx = 0
+    noise = noise or {}
     if in_channels == 0:
         x = params["const"].to(dtype)[None].repeat(ws.shape[0], 1, 1, 1)
     else:
         x = synthesis_layer_apply(
             params["conv0"], x.to(dtype), ws[:, w_idx], up=up,
-            use_noise=use_noise, conv_clamp=conv_clamp, noise_mode=noise_mode)
+            use_noise=use_noise, conv_clamp=conv_clamp, noise_mode=noise_mode,
+            noise=noise.get("conv0"))
         w_idx += 1
     x = synthesis_layer_apply(
         params["conv1"], x, ws[:, w_idx], use_noise=use_noise,
-        conv_clamp=conv_clamp, noise_mode=noise_mode)
+        conv_clamp=conv_clamp, noise_mode=noise_mode,
+        noise=noise.get("conv1"))
     w_idx += 1
 
     if img is not None and up > 1:
@@ -228,12 +243,36 @@ def synthesis_network_init(generator, cfg: SynthesisConfig, device="cuda"):
     return params
 
 
+def random_noise(cfg: SynthesisConfig, N, draws):
+    """Per-layer noise ``{"b{res}": {"conv0": [N, 1, res, res], "conv1":
+    ...}}`` from a draw source (``tgi_torch.utils.draws``), split as
+    ``tgi`` splits its noise key: one child per block, two per block's
+    layers (``tgi/nn/synthesis.py:190-196``, ``:245-252``)."""
+    noise = {}
+    for bk, res in zip(draws.split(len(cfg.resolutions)), cfg.resolutions):
+        k0, k1 = bk.split(2)
+        block = {"conv0": k0.normal((N, 1, res, res))} if res > 4 else {}
+        block["conv1"] = k1.normal((N, 1, res, res))
+        noise[f"b{res}"] = block
+    return noise
+
+
 def synthesis_network_apply(params, ws, cfg: SynthesisConfig, *,
-                            noise_mode="const", force_fp32=False):
+                            noise_mode="const", noise=None, generator=None,
+                            force_fp32=False):
     """ws: [N, num_ws, w_dim] -> img [N, img_channels, R, R] (float32).
 
+    Under ``noise_mode="random"`` the noise is ``noise`` (see
+    :func:`random_noise`), else drawn from ``generator``.
     ``force_fp32`` runs every block in float32 whatever ``fused_dtype``
     says."""
+    _check_noise_mode(noise_mode)
+    if noise_mode == "random" and noise is None:
+        if generator is None:
+            raise ValueError("noise_mode='random' needs noise= or "
+                             "generator=")
+        noise = random_noise(cfg, ws.shape[0],
+                             TorchDraws(generator, ws.device))
     channels = cfg.channels
     ws = ws.float()
     x = img = None
@@ -244,7 +283,9 @@ def synthesis_network_apply(params, ws, cfg: SynthesisConfig, *,
         x, img = synthesis_block_apply(
             params[f"b{res}"], x, img, ws[:, w_idx:w_idx + num_conv + 1],
             in_channels=in_ch, conv_clamp=cfg.conv_clamp,
-            noise_mode=noise_mode, dtype=block_dtype(
+            noise_mode=noise_mode,
+            noise=None if noise is None else noise[f"b{res}"],
+            dtype=block_dtype(
                 cfg.fused_dtype, res >= cfg.fp16_resolution, force_fp32))
         w_idx += num_conv
     return img

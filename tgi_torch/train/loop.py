@@ -1,0 +1,208 @@
+"""EG3D GAN training loop (twin of ``tgi/train/loop.py``).
+
+Behavioral parity target: training/training_loop.py:95-464 — infinite
+data, lazy-regularization phase cadence, EMA, ADA adjustment, tick
+logging (stdout + stats.jsonl), image/checkpoint snapshots, in-loop
+metric hooks, cooperative abort.
+
+One process on one device. ``tgi``'s ``mesh`` (data parallelism over
+chips) waits for ROADMAP item 14, and its orbax snapshots have no twin
+(``io/orbax_io.py`` is not ported by design): both raise. Checkpoints
+are the port's single files (``io/checkpoints.py``), named as ``tgi``
+names them, ``network-XXXXXX.ckpt``, and hold the whole train state
+(G, D, the EMA and both Adams' moments), so a resume restores it bit for
+bit.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from tgi_torch.train.augment import AdaptiveAugment, AugmentPipe
+from tgi_torch.train.dataset import ImageFolderDataset, infinite_batches
+from tgi_torch.train.gan import (GANTrainConfig, GANTrainer,
+                                 init_train_state, load_train_state,
+                                 train_state_tree)
+from tgi_torch.utils.stats import Collector, JsonlLogger
+
+
+def training_loop(
+    *,
+    G,                       # TriPlaneGenerator (config object)
+    d_cfg,                   # DiscriminatorConfig
+    data_path: str,
+    run_dir: str,
+    cfg: GANTrainConfig = GANTrainConfig(),
+    total_kimg: float = 25000,
+    kimg_per_tick: float = 4,
+    snapshot_ticks: int = 50,
+    image_snapshot_ticks: int = 50,
+    ada_target: float | None = 0.6,
+    augment_p: float = 0.0,
+    mesh=None,
+    resume_ckpt: str | None = None,
+    seed: int = 0,
+    metric_fns: dict | None = None,
+    abort_fn=None,
+    tensorboard: bool = False,
+    checkpoint_backend: str = "torch",
+    device="cuda",
+):
+    """GAN training loop (reference training_loop.py:93-430); returns the
+    train state.
+
+    ``augment_p`` is the reference's initial augmentation probability
+    (``tgi`` starts at 0); the pipe runs where it or ``ada_target`` is
+    set, and ADA adjusts p from ``ada_target``. Weights are drawn from a
+    CPU generator seeded by ``seed``; latents and every draw of the step
+    from a generator on ``device`` seeded the same.
+    """
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported yet "
+                                  "(ROADMAP item 14)")
+    if checkpoint_backend != "torch":
+        raise NotImplementedError(
+            f"checkpoint_backend={checkpoint_backend!r}: the port writes "
+            f"its own single-file checkpoints ('torch'); orbax snapshots "
+            f"have no twin")
+    os.makedirs(run_dir, exist_ok=True)
+    device = torch.device(device)
+    logger = JsonlLogger(os.path.join(run_dir, "stats.jsonl"))
+    collector = Collector()
+    tb = None
+    if tensorboard:
+        # Optional mirror of the jsonl stream (utils/log_utils.py parity).
+        from tgi_torch.utils.opt_viz import TBWriter
+        tb = TBWriter(os.path.join(run_dir, "tb"))
+
+    dataset = ImageFolderDataset(data_path,
+                                 resolution=G.cfg.img_resolution,
+                                 xflip=True)
+    batches = infinite_batches(dataset, cfg.batch_size, seed=seed)
+
+    augment_fn = (AugmentPipe() if ada_target is not None or augment_p > 0
+                  else None)
+    trainer = GANTrainer(G, d_cfg, cfg, augment_fn=augment_fn)
+    state = init_train_state(torch.Generator().manual_seed(seed), G, d_cfg,
+                             trainer, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cur_nimg = 0
+    if resume_ckpt:
+        from tgi_torch.io.checkpoints import load_checkpoint
+        data = load_checkpoint(resume_ckpt, device=device)
+        load_train_state(state, data["params"])
+        cur_nimg = int((data["metadata"] or {}).get("cur_nimg", 0))
+
+    ada_p = augment_p
+    ada = (AdaptiveAugment(target=ada_target, batch_size=cfg.batch_size,
+                           p=augment_p)
+           if ada_target is not None else None)
+    ada_signs = []          # Loss/signs/real window since last adjustment
+    batch_idx = 0
+
+    tick = 0
+    tick_start_nimg = cur_nimg
+    tick_start_time = time.time()
+    start_time = tick_start_time
+
+    try:
+        while cur_nimg < total_kimg * 1000:
+            real_img, real_c = next(batches)
+            z = torch.randn((cfg.batch_size, G.cfg.z_dim), generator=gen,
+                            device=device)
+            real_c = torch.from_numpy(real_c).to(device)
+            real_img = torch.from_numpy(real_img).to(device)
+
+            n_batch = cur_nimg // cfg.batch_size
+            do_greg = (n_batch % cfg.g_reg_interval) == 0
+            do_dreg = (n_batch % cfg.d_reg_interval) == 0
+            state, metrics = trainer.train_step(
+                state, z, real_c, real_img, gen, cur_nimg=cur_nimg,
+                do_greg=do_greg, do_dreg=do_dreg, ada_p=ada_p)
+            cur_nimg += cfg.batch_size
+            batch_idx += 1
+            host_metrics = {k: float(v) for k, v in metrics.items()}
+            collector.update(host_metrics)
+
+            # ADA heuristic every ada_interval batches from
+            # Loss/signs/real (training_loop.py:325-328).
+            if ada is not None:
+                ada_signs.append(host_metrics["signs_real"])
+                if batch_idx % ada.interval == 0:
+                    ada_p = ada.update(float(np.mean(ada_signs)))
+                    ada_signs.clear()
+
+            if cur_nimg >= tick_start_nimg + kimg_per_tick * 1000:
+                now = time.time()
+                stats = collector.as_dict()
+                record = {
+                    "tick": tick, "kimg": cur_nimg / 1000,
+                    "sec_per_kimg": (now - tick_start_time)
+                    / max((cur_nimg - tick_start_nimg) / 1000, 1e-8),
+                    "total_sec": now - start_time, "ada_p": ada_p,
+                    **{k: v["mean"] for k, v in stats.items()},
+                }
+                print(" ".join(f"{k} {v:.4g}" if isinstance(v, float)
+                               else f"{k} {v}" for k, v in record.items()),
+                      flush=True)
+                logger.write(record)
+                if tb is not None:
+                    tb.scalars(record, cur_nimg // 1000, prefix="train/")
+                    tb.flush()
+                collector.reset()
+
+                if snapshot_ticks and tick % snapshot_ticks == 0:
+                    from tgi_torch.io.checkpoints import save_checkpoint
+                    save_checkpoint(
+                        os.path.join(run_dir,
+                                     f"network-{cur_nimg // 1000:06d}.ckpt"),
+                        train_state_tree(state),
+                        metadata={"cur_nimg": cur_nimg})
+                    if metric_fns:
+                        for name, fn in metric_fns.items():
+                            val = fn(state["g_ema"])
+                            logger.write({"metric": name,
+                                          "value": float(val),
+                                          "kimg": cur_nimg / 1000})
+
+                if image_snapshot_ticks and tick % image_snapshot_ticks == 0:
+                    _save_snapshot_grid(G, state["g_ema"], run_dir, cur_nimg,
+                                        seed)
+
+                tick += 1
+                tick_start_nimg = cur_nimg
+                tick_start_time = now
+                if abort_fn is not None and abort_fn():
+                    break
+    finally:
+        logger.close()
+        dataset.close()
+        if tb is not None:
+            tb.close()
+    return state
+
+
+def _save_snapshot_grid(G, g_ema, run_dir, cur_nimg, seed, n=4):
+    """``fakes-XXXXXX.png``: ``n`` frontal renders of the EMA generator
+    at truncation 0.7 (Pillow writes the file). The latents come from a
+    generator seeded by ``seed``, the same at every snapshot, so the
+    training draws do not depend on the snapshots."""
+    from tgi_torch.render.cameras import (fov_to_intrinsics, look_at_pose,
+                                          pack_camera)
+    from tgi_torch.utils.image import save_image_grid
+    dev = g_ema["mapping"]["fc0"]["weight"].device
+    cam = look_at_pose(np.pi / 2, np.pi / 2, [0., 0., 0.2], radius=2.7,
+                       device=dev)
+    c = pack_camera(cam[None].repeat(n, 1, 1),
+                    fov_to_intrinsics(18.837, device=dev))
+    z = torch.randn((n, G.cfg.z_dim),
+                    generator=torch.Generator().manual_seed(seed)).to(dev)
+    with torch.no_grad():
+        img = G(g_ema, z, c, truncation_psi=0.7, det=True)["image"]
+    path = os.path.join(run_dir, f"fakes-{cur_nimg // 1000:06d}.png")
+    save_image_grid(path, img, cols=n)
+    return path
