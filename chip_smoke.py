@@ -146,6 +146,33 @@ BF16_GRAD_TOL), and the regulariser's 4 x 2,000 points, most of them
 outside the box, through the gather and the splat against their plain
 versions; (d) a tiny ``train_step`` on the card against the CPU.
 
+Phase 15 drives the GAN metrics (``tgi``'s evaluation path) on the
+seed-2 full-width generator: (a) Inception-v3 with drawn weights whose
+BatchNorm is calibrated on 16 renders and their clamped copies, on 4
+renders at 512² (so through the antialiased resize to 299²), card
+against CPU within INCEPTION_TOL: torchvision's layout through
+``inception_feature_fn``, and NVIDIA's names converted and run through
+``nvidia_detector_fn`` (BN separate), features and 1008-way logits; (b)
+``python -m tgi_torch.apps.calc_metrics`` in the process on a port
+``.ckpt``, 256 ``.npy`` renders from other z's and each detector saved
+with ``torch.save``, ``--metrics fid,kid,pr --num-items 256``: finite
+jsonl records, exactly 2 x 32 gathers and no splat per run (every count
+set to 0 just before and read just after), its seconds split into
+rendering, Inception and the distances, and then, outside the counted
+runs, one batch of 8 at the metrics' camera distribution through the
+kernel against the plain sampler on the same z and c (image, image_raw
+and image_depth within SWAP_TOL); (c) fid of a set of the card's
+features against itself within the square root's error on its
+rank-deficient covariance, pr exactly (1, 1); (d) ``is50k`` on the
+NVIDIA head's softmax without the bias over 64 renders, in [1, 1008],
+and ``ppl2_wend`` with drawn VGG/LPIPS, 16 samples in batches of 4,
+finite, 4 gathers a segment, both through ``calc_metric``; (e) the
+alias-free generator at ``tgi``'s default SG3Config (256², 14 layers):
+ms a forward at batch 8 and EQ-T, EQ-T_frac and EQ-R over 16 samples;
+a tiny SG3 on the card against its CPU run, images within SG3_CPU_TOL
+and the three PSNRs with fixed draws within EQ_DB_TOL dB. Every card
+number is printed beside the card's name and power limit.
+
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the tgi_torch package beside it, the
@@ -1591,13 +1618,6 @@ def phase_selfinv_gate(torch, gs):
     return out
 
 
-def _bn_stats(bn, y):
-    """BatchNorm params whose running statistics are those of ``y``."""
-    dims = (0, 2, 3) if y.dim() == 4 else (0,)
-    return {**bn, "running_mean": y.mean(dim=dims),
-            "running_var": y.var(dim=dims, unbiased=False).clamp(min=1e-5)}
-
-
 def _calibrate_trunk(torch, params, x):
     """An IR-SE50 trunk's BatchNorm statistics set, block by block, from
     the activations the batch ``x`` gives them: the O(1) operating point
@@ -1606,23 +1626,24 @@ def _calibrate_trunk(torch, params, x):
     float64 one by ~5e-3 of its largest value on the CPU (ArcFace, seed
     12), so two float32 runs cannot be compared."""
     from tgi_torch.models import irse
+    from tgi_torch.scripts.inception_error_scale import bn_stats
     il = dict(params["input_layer"])
     y = irse.conv(x, il["0"]["weight"], padding=1)
-    il["1"] = _bn_stats(il["1"], y)
+    il["1"] = bn_stats(il["1"], y)
     y = irse.prelu(il["2"], irse.batchnorm(il["1"], y))
     body = {}
     for i, (_, _, stride) in enumerate(irse.get_blocks(50)):
         p = dict(params["body"][str(i)])
         r = dict(p["res_layer"])
-        r["0"] = _bn_stats(r["0"], y)
+        r["0"] = bn_stats(r["0"], y)
         z = irse.conv(irse.batchnorm(r["0"], y), r["1"]["weight"], padding=1)
         z = irse.conv(irse.prelu(r["2"], z), r["3"]["weight"], stride=stride,
                       padding=1)
-        r["4"] = _bn_stats(r["4"], z)
+        r["4"] = bn_stats(r["4"], z)
         p["res_layer"] = r
         if "shortcut_layer" in p:
             sc = dict(p["shortcut_layer"])
-            sc["1"] = _bn_stats(sc["1"], irse.conv(y, sc["0"]["weight"],
+            sc["1"] = bn_stats(sc["1"], irse.conv(y, sc["0"]["weight"],
                                                    stride=stride))
             p["shortcut_layer"] = sc
         y = irse.bottleneck_apply(p, y, stride, True)
@@ -1640,6 +1661,7 @@ def _face_inputs(torch):
     from tgi_torch.models.arcface import arcface_init
     from tgi_torch.models.e4e import e4e_encode_w0, e4e_init
     from tgi_torch.models.irse import batchnorm
+    from tgi_torch.scripts.inception_error_scale import bn_stats
     gen = torch.Generator().manual_seed(12)
     enc = e4e_init(gen, device="cpu")
     arc = arcface_init(gen, device="cpu")
@@ -1649,10 +1671,10 @@ def _face_inputs(torch):
         arc, t = _calibrate_trunk(
             torch, arc, torch.randn((4, 3, 112, 112), generator=gen))
         ol = dict(arc["output_layer"])
-        ol["0"] = _bn_stats(ol["0"], t)
+        ol["0"] = bn_stats(ol["0"], t)
         z = (batchnorm(ol["0"], t).reshape(4, -1) @ ol["3"]["weight"].T
              + ol["3"]["bias"])
-        ol["4"] = _bn_stats(ol["4"], z)
+        ol["4"] = bn_stats(ol["4"], z)
         arc["output_layer"] = ol
         w0 = e4e_encode_w0(enc, torch.full((1, 3, 256, 256), 128.0))
     enc["styles"]["0"]["linear"]["weight"] *= 0.5 / float(w0.abs().max())
@@ -2582,6 +2604,466 @@ def phase_training(torch, gs, tmp):
     return out
 
 
+# Phase 15: GAN metrics (calc_metrics, Inception, IS, PPL, SG3 and EQ).
+METRIC_ITEMS = 256         # the command line's --num-items
+METRIC_BATCH = 8           # compute_generator_features' batch
+# Inception, card vs CPU (fp32, TF32 off, BatchNorm calibrated): features
+# and logits within INCEPTION_TOL x their largest magnitude. A correct
+# float32 run stands 1.5e-5 to 4.1e-5 of that from its float64 one on the
+# CPU, and two float32 runs that sum in other orders part by up to 6.1e-5
+# (tgi_torch.scripts.inception_error_scale, seeds 0 and 1): each of ~47
+# chained convolutions rounds at ~1e-7, and the calibrated BatchNorms of
+# near-dead channels amplify it. The faults it must catch read 100 x the
+# limit and more: TF32 convolutions 2.8e-2, the resize not antialiased
+# 0.20, BatchNorm's eps 1.1e-3 for 1e-3 0.40, the pad counted in the
+# average pools 0.46 (the same script, float64).
+INCEPTION_TOL = 3e-4
+IS_IMAGES = 64
+PPL_SAMPLES = 16           # 4 segments of 4
+EQ_SAMPLES = 16            # 2 batches of 8 at SG3's default 256²
+# Tiny SG3, card vs CPU: images within SG3_CPU_TOL x max(1, max|image|),
+# PSNRs with fixed draws within EQ_DB_TOL dB.
+SG3_CPU_TOL = 1e-4
+EQ_DB_TOL = 1e-2
+
+
+def _metric_images(torch, G, params, n, seed):
+    """``n`` renders [n, 3, 512, 512] of the generator at the metrics'
+    camera distribution, z and cameras from ``seed``."""
+    from tgi_torch.apps.calc_metrics import default_camera_sampler
+    from tgi_torch.metrics.features import generator_draws
+    gen = torch.Generator().manual_seed(seed)
+    sampler = default_camera_sampler(device=DEVICE)
+    out = []
+    with torch.no_grad():
+        for _ in range(0, n, METRIC_BATCH):
+            z, c = generator_draws(G, sampler, gen, METRIC_BATCH, DEVICE)
+            out.append(G(params, z, c, det=True)["image"])
+    return torch.cat(out)[:n]
+
+
+def _max_rel(a, b):
+    return ((a.cpu() - b).abs().max() / b.abs().max()).item()
+
+
+def phase_inception_vs_cpu(torch, G, params, card, tmp):
+    """a. Inception on 4 renders of the seed-2 generator (512², so through
+    the antialiased resize to 299²), drawn weights with BatchNorm
+    calibrated on 16 renders and their clamped copies (the dataset's
+    images are clamped, the generator's are not), card against CPU:
+    torchvision's layout through ``inception_feature_fn``, and NVIDIA's
+    names converted and run through ``nvidia_detector_fn`` (BN
+    separate), features and 1008-way logits. Saves both state dicts for
+    the command line (b)."""
+    from tgi_torch.metrics import inception as ti
+    from tgi_torch.scripts.inception_error_scale import calibrate_inception
+    calib = _metric_images(torch, G, params, 16, seed=9)
+    calib = torch.cat([calib, calib.clamp(-1, 1)])
+    img = calib[:4]
+    gen = torch.Generator().manual_seed(11)
+    dets, errs = {}, {}
+    for layout, classes in (("torchvision", 1000), ("nvidia", 1008)):
+        p = ti.inception_v3_init(gen, DEVICE)
+        p["fc"] = {"weight": (torch.randn(classes, 2048, generator=gen)
+                              * 0.01).to(DEVICE),
+                   "bias": (torch.randn(classes, generator=gen)
+                            * 0.01).to(DEVICE)}
+        x = ti.resize_299(calib)
+        if layout == "nvidia":
+            x = (ti.resize_299((calib + 1) * 127.5) - 128.0) / 128.0
+        calibrate_inception(p, x, layout == "nvidia")
+        sd = (ti.torch_state_dict(p) if layout == "torchvision"
+              else ti.nvidia_state_dict(p))
+        dets[layout] = os.path.join(tmp, f"inception_{layout}.pt")
+        torch.save(sd, dets[layout])
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            im = img.to(dev)
+            with torch.no_grad():
+                if layout == "torchvision":
+                    q = ti.convert_torch_inception(sd, dev)
+                    outs[dev] = {"features": ti.inception_feature_fn(q)(im)}
+                else:
+                    q = ti.convert_nvidia_inception(sd, dev)
+                    im = (im + 1) * 127.5
+                    outs[dev] = {
+                        "features": ti.nvidia_detector_fn(q)(im),
+                        "logits": ti.nvidia_detector_fn(
+                            q, return_logits=True)(im)}
+        for k, want in outs["cpu"].items():
+            got = outs[DEVICE][k]
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  f"inception {layout} {k}: shape {tuple(got.shape)}")
+            errs[f"{layout}_{k}"] = _max_rel(got, want)
+            log(f"inception {layout} {k}, card vs CPU: max |Δ| / max |CPU| "
+                f"{errs[f'{layout}_{k}']:.3g} (max |CPU| "
+                f"{want.abs().max().item():.4g}) [{card}]")
+    check(max(errs.values()) <= INCEPTION_TOL,
+          f"inception card vs CPU beyond {INCEPTION_TOL}: {errs}")
+    return dets, errs
+
+
+def metric_data(torch, G, params, tmp):
+    """METRIC_ITEMS renders of the generator from other z's and cameras,
+    written as ``.npy`` images ([3, 512, 512] in [-1, 1])."""
+    import numpy as np
+    data = os.path.join(tmp, "metric_data")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    for i in range(0, METRIC_ITEMS, 32):
+        imgs = _metric_images(torch, G, params, 32, seed=100 + i)
+        for j, im in enumerate(imgs.clamp(-1, 1).cpu().numpy()):
+            np.save(os.path.join(data, f"img{i + j:04d}.npy"), im)
+    log(f"metric data: {METRIC_ITEMS} renders at {G.cfg.img_resolution}² "
+        f"as .npy in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return data
+
+
+class metric_timer:
+    """Inside the block, the command line's Inception calls, its feature
+    loops and its distances are timed (the Inception calls between two
+    synchronisations), and the statistics handed to ``calc_metric``
+    kept."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.t = {"inception": 0.0, "dataset": 0.0, "generator": 0.0,
+                  "distances": 0.0, "inception_generator": 0.0}
+        self.stats = {}
+
+    def __enter__(self):
+        from tgi_torch.apps import calc_metrics
+        from tgi_torch.metrics import features, gan_metrics
+        torch, t, stats = self.torch, self.t, self.stats
+        self.saved = [(calc_metrics, "load_detector_feature_fn"),
+                      (features, "compute_dataset_features"),
+                      (features, "compute_generator_features"),
+                      (gan_metrics, "calc_metric")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        (_, _, load), (_, _, data_fn), (_, _, gen_fn), (_, _, calc) = \
+            self.saved
+        in_gen = [False]
+
+        def timed_loader(path, device=None):
+            fn = load(path, device)
+
+            def timed(x):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(x)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                t["inception"] += dt
+                if in_gen[0]:
+                    t["inception_generator"] += dt
+                return out
+            return timed
+
+        def wrap(fn, key, gen=False):
+            def run(*a, **kw):
+                in_gen[0] = gen
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                t[key] += time.perf_counter() - t0
+                in_gen[0] = False
+                return out
+            return run
+
+        def timed_calc(name, **kw):
+            stats["real"], stats["gen"] = kw["real_stats"], kw["gen_stats"]
+            t0 = time.perf_counter()
+            out = calc(name, **kw)
+            t["distances"] += time.perf_counter() - t0
+            return out
+
+        calc_metrics.load_detector_feature_fn = timed_loader
+        features.compute_dataset_features = wrap(data_fn, "dataset")
+        features.compute_generator_features = wrap(gen_fn, "generator",
+                                                   gen=True)
+        gan_metrics.calc_metric = timed_calc
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def _metric_batch_swap_err(torch, gs, G, params):
+    """One batch of METRIC_BATCH renders at the metrics' camera
+    distribution, as ``compute_generator_features`` renders it, through
+    the kernel and through the plain sampler on the same z and c; max abs
+    difference of image, image_raw and image_depth. Its launches are
+    outside the counted runs."""
+    import tgi_torch.render.renderer as renderer
+    from tgi_torch.apps.calc_metrics import default_camera_sampler
+    from tgi_torch.metrics.features import generator_draws
+    z, c = generator_draws(G, default_camera_sampler(device=DEVICE),
+                           torch.Generator().manual_seed(21), METRIC_BATCH,
+                           DEVICE)
+    keys = ("image", "image_raw", "image_depth")
+    with torch.no_grad():
+        got = G(params, z, c, det=True)
+        got = {k: got[k].float() for k in keys}
+        before = gs.LAUNCHES
+        renderer.sample_triplanes = gs.sample_triplanes_plain
+        try:
+            want = G(params, z, c, det=True)
+        finally:
+            renderer.sample_triplanes = gs.sample_triplanes
+        torch.cuda.synchronize()
+    check(gs.LAUNCHES == before, "the plain metrics batch launched the kernel")
+    err = {k: (got[k] - want[k].float()).abs().max().item() for k in keys}
+    log(f"calc_metrics batch (N = {METRIC_BATCH}), plain sampler vs kernel: "
+        f"max abs err {err}")
+    check(max(err.values()) <= SWAP_TOL,
+          f"calc_metrics batch, plain sampler vs kernel: {err} > {SWAP_TOL}")
+    return max(err.values())
+
+
+def _read_jsonl(run, metric):
+    with open(os.path.join(run, f"metric-{metric}.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_calc_metrics_cli(torch, gs, G, params, dets, card, tmp):
+    """b. ``python -m tgi_torch.apps.calc_metrics`` end to end, in the
+    process, on a port ``.ckpt`` of the seed-2 generator, METRIC_ITEMS
+    ``.npy`` renders of it and each drawn detector (a torchvision-layout
+    and an NVIDIA-named state dict): ``--metrics fid,kid,pr --num-items
+    256 --run-dir``. Every count set to 0 just before each run and read
+    just after: 2 gathers a rendered batch of 8, no splat. Its seconds
+    split into rendering, Inception and the distances."""
+    import math as m_
+    from tgi_torch.apps import calc_metrics
+    from tgi_torch.io.checkpoints import save_checkpoint
+    net = os.path.join(tmp, "G_seed2.ckpt")
+    save_checkpoint(net, params, config=G.cfg)
+    data = metric_data(torch, G, params, tmp)
+    want_gathers = 2 * m_.ceil(METRIC_ITEMS / METRIC_BATCH)
+    runs = {}
+    for layout, det in dets.items():
+        run = os.path.join(tmp, f"metrics_{layout}")
+        os.makedirs(run)
+        zero_counts(gs)
+        with metric_timer(torch) as mt:
+            t0 = time.perf_counter()
+            try:
+                calc_metrics.main([
+                    "--network", net, "--data", data,
+                    "--metrics", "fid,kid,pr",
+                    "--num-items", str(METRIC_ITEMS), "--run-dir", run,
+                    "--detector", det, "--device", DEVICE])
+            except SystemExit as e:
+                check(e.code in (0, None), f"calc_metrics exited {e.code}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = counts(gs)
+        results = {}
+        for metric in ("fid", "kid", "pr"):
+            recs = _read_jsonl(run, metric)
+            check(len(recs) == 1, f"metric-{metric}.jsonl: {len(recs)} rows")
+            results.update(recs[0]["results"])
+        check(all(math.isfinite(v) for v in results.values()),
+              f"calc_metrics {layout}: {results}")
+        check(launches["triplane_gather"] == want_gathers,
+              f"calc_metrics {layout}: {launches['triplane_gather']} "
+              f"gathers, want {want_gathers}")
+        check(launches["triplane_splat"] == 0
+              and launches["triplane_splat_sorted"] == 0,
+              f"calc_metrics {layout}: a splat launched: {launches}")
+        t = mt.t
+        split = {"cli_s": wall,
+                 "render_s": t["generator"] - t["inception_generator"],
+                 "inception_s": t["inception"],
+                 "dataset_read_s": t["dataset"] - (t["inception"]
+                                                   - t["inception_generator"]),
+                 "distances_s": t["distances"]}
+        split["other_s"] = wall - (split["render_s"] + split["inception_s"]
+                                   + split["dataset_read_s"]
+                                   + split["distances_s"])
+        runs[layout] = {"results": results, "launches": launches,
+                        "seconds": split, "stats": mt.stats}
+        log(f"calc_metrics {layout}: {results}; gathers "
+            f"{launches['triplane_gather']}, splats "
+            f"{launches['triplane_splat']}; "
+            + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+            + f"; s per 1,000 items: render "
+            f"{split['render_s'] * 1000 / METRIC_ITEMS:.2f}, Inception "
+            f"{split['inception_s'] * 1000 / (2 * METRIC_ITEMS):.2f} [{card}]")
+    return runs
+
+
+def phase_fixed_points(torch, stats, card):
+    """c. The distances at their fixed points on the card's features: fid
+    of a set against itself within the square root's error on its
+    rank-deficient covariance, pr exactly (1, 1)."""
+    import numpy as np
+    from tgi_torch.metrics.gan_metrics import calc_metric
+    _, cov = stats.get_mean_cov()
+    d = cov.shape[0]
+    rank = min(stats.num_items - 1, d)
+    lam = float(np.linalg.eigvalsh(cov).max())
+    # sqrtm(Σ²) leaves each of Σ's d - rank null directions at
+    # O(sqrt(eps) λmax) instead of 0, each counted twice in the trace.
+    bound = 2 * (d - rank) * math.sqrt(np.finfo(np.float64).eps) * lam
+    t0 = time.perf_counter()
+    fid = calc_metric("fid", real_stats=stats, gen_stats=stats)[
+        "results"]["fid"]
+    pr = calc_metric("pr", real_stats=stats, gen_stats=stats)["results"]
+    log(f"fixed points: fid(set, set) {fid:.3g} (bound {bound:.3g}: "
+        f"2 x {d - rank} null directions x sqrt(eps) x λmax {lam:.4g}), "
+        f"pr {pr}, {time.perf_counter() - t0:.1f} s [{card}]")
+    check(abs(fid) <= bound, f"fid(set, set) = {fid} beyond {bound}")
+    check(pr == {"precision": 1.0, "recall": 1.0}, f"pr(set, set) = {pr}")
+    return {"fid_self": fid, "fid_bound": bound, "pr_self": pr}
+
+
+def phase_is_ppl(torch, gs, G, params, nvidia_det, card):
+    """d. ``is50k`` on the softmax of the NVIDIA detector's logits without
+    the output bias on IS_IMAGES renders, in [1, 1008]; ``ppl2_wend`` on
+    the full-width generator with drawn VGG/LPIPS, PPL_SAMPLES samples in
+    batches of 4, finite, with 4 gathers a segment and no splat; both
+    through ``calc_metric`` with explicit arguments."""
+    from tgi_torch.apps.calc_metrics import default_camera_sampler
+    from tgi_torch.apps.run_pti import load_state_dict
+    from tgi_torch.losses.lpips import LPIPSLoss
+    from tgi_torch.metrics import inception as ti
+    from tgi_torch.metrics.gan_metrics import calc_metric
+    det = ti.convert_nvidia_inception(load_state_dict(nvidia_det), DEVICE)
+    logits_fn = ti.nvidia_detector_fn(det, return_logits=True,
+                                      no_output_bias=True)
+    zero_counts(gs)
+    t0 = time.perf_counter()
+    imgs = _metric_images(torch, G, params, IS_IMAGES, seed=31)
+    with torch.no_grad():
+        probs = torch.cat([logits_fn((imgs[i:i + 16] + 1) * 127.5)
+                           .softmax(dim=1) for i in range(0, IS_IMAGES, 16)])
+    is_res = calc_metric("is50k", gen_probs=probs)["results"]
+    is_s = time.perf_counter() - t0
+    is_launches = counts(gs)
+    check(1.0 <= is_res["is_mean"] <= 1008 and math.isfinite(
+        is_res["is_std"]), f"is50k {is_res}")
+    zero_counts(gs)
+    t0 = time.perf_counter()
+    ppl = calc_metric(
+        "ppl2_wend", G=G, params=params,
+        lpips_loss=LPIPSLoss(generator=torch.Generator().manual_seed(41),
+                             device=DEVICE),
+        camera_sampler=default_camera_sampler(device=DEVICE),
+        num_samples=PPL_SAMPLES)["results"]
+    torch.cuda.synchronize()
+    ppl_s = time.perf_counter() - t0
+    ppl_launches = counts(gs)
+    segments = PPL_SAMPLES // 4
+    log(f"is50k on {IS_IMAGES} renders: {is_res}, {is_s:.1f} s, gathers "
+        f"{is_launches['triplane_gather']}; ppl2_wend {PPL_SAMPLES} samples: "
+        f"{ppl}, {ppl_s:.1f} s, gathers {ppl_launches['triplane_gather']} "
+        f"({segments} segments) [{card}]")
+    check(math.isfinite(ppl["ppl"]), f"ppl2_wend {ppl}")
+    check(ppl_launches["triplane_gather"] == 4 * segments
+          and ppl_launches["triplane_splat"] == 0,
+          f"ppl2_wend launches {ppl_launches}")
+    check(is_launches["triplane_gather"] == 2 * IS_IMAGES // METRIC_BATCH
+          and is_launches["triplane_splat"] == 0,
+          f"is50k renders' launches {is_launches}")
+    return {"is50k": is_res, "is_s": is_s,
+            "is_gathers": is_launches["triplane_gather"], "ppl": ppl["ppl"],
+            "ppl_s": ppl_s, "ppl_gathers": ppl_launches["triplane_gather"]}
+
+
+def _eq_samples(seed, n_batches, batch, z_dim, res):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [dict(z=rng.randn(batch, z_dim).astype(np.float32),
+                 t_int=np.round(rng.uniform(-0.125, 0.125, 2) * res) / res,
+                 t_frac=rng.uniform(-0.125, 0.125, 2),
+                 angle=float(rng.uniform(-np.pi, np.pi)))
+            for _ in range(n_batches)]
+
+
+def phase_sg3_eq(torch, card):
+    """e. The alias-free generator at tgi's default SG3Config (256², 14
+    layers, channel base 32768), drawn from a seed: ms per forward at
+    batch 8, and ``compute_equivariance_metrics`` (EQ-T, EQ-T_frac,
+    EQ-R) over EQ_SAMPLES samples, finite; a tiny SG3 on the card against
+    its CPU run: images, and the three PSNRs with fixed draws."""
+    from tgi_torch.nn.synthesis3 import SG3Config, SG3Generator
+    from tgi_torch.metrics.equivariance import compute_equivariance_metrics
+    eq_kw = dict(eqt_int=True, eqt_frac=True, eqr=True)
+    G3 = SG3Generator(SG3Config())
+    p3 = G3.init(torch.Generator().manual_seed(51), DEVICE)
+    res = G3.cfg.img_resolution
+    z = torch.randn(8, G3.cfg.z_dim,
+                    generator=torch.Generator().manual_seed(52)).to(DEVICE)
+    with torch.no_grad():
+        img = G3(p3, z, None)
+        check(img.shape == (8, 3, res, res)
+              and bool(torch.isfinite(img).all()),
+              f"SG3 forward: {tuple(img.shape)}")
+        ms = cuda_ms(torch, lambda: G3(p3, z, None), iters=10, warmup=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psnr = compute_equivariance_metrics(G3, p3, num_samples=EQ_SAMPLES,
+                                        batch_size=8, **eq_kw)
+    torch.cuda.synchronize()
+    eq_s = time.perf_counter() - t0
+    log(f"SG3 default config: {ms:.2f} ms per forward at batch 8; EQ over "
+        f"{EQ_SAMPLES} samples: {psnr} dB in {eq_s:.1f} s [{card}]")
+    check(all(math.isfinite(v) for v in psnr.values()), f"EQ {psnr}")
+    del G3, p3
+
+    tiny = dict(z_dim=16, w_dim=16, img_resolution=32, channel_base=1024,
+                channel_max=16, num_layers=6, margin_size=4, num_fp16_res=0)
+    g = SG3Generator(SG3Config(**tiny))
+    cpu = g.init(torch.Generator().manual_seed(0), device="cpu")
+    samples = _eq_samples(7, 2, 2, 16, 32)
+    outs = {}
+    for dev in ("cpu", DEVICE):
+        p = _to(cpu, dev)
+        zt = torch.from_numpy(samples[0]["z"]).to(dev)
+        with torch.no_grad():
+            outs[dev] = (g(p, zt, None, truncation_psi=0.8),
+                         compute_equivariance_metrics(g, p, samples=samples,
+                                                      **eq_kw))
+    (img_cpu, psnr_cpu), (img_card, psnr_card) = outs["cpu"], outs[DEVICE]
+    img_err = (img_card.cpu() - img_cpu).abs().max().item()
+    img_scale = max(1.0, img_cpu.abs().max().item())
+    db_err = max(abs(psnr_card[k] - psnr_cpu[k]) for k in psnr_cpu)
+    log(f"tiny SG3, card vs CPU: image max |Δ| {img_err:.3g} (scale "
+        f"{img_scale:.3g}); PSNRs {psnr_card} vs {psnr_cpu}, max |Δ| "
+        f"{db_err:.3g} dB")
+    check(img_err <= SG3_CPU_TOL * img_scale,
+          f"tiny SG3 image card vs CPU {img_err}")
+    check(db_err <= EQ_DB_TOL, f"tiny SG3 PSNRs card vs CPU {db_err} dB")
+    return {"forward_ms_b8": ms, "eq_psnr_db": psnr, "eq_s": eq_s,
+            "tiny_image_err": img_err, "tiny_psnr_err_db": db_err}
+
+
+def phase_metrics(torch, gs, card, tmp):
+    """Phase 15, a-e."""
+    from tgi_torch.scripts import selfinv_gate
+    t0 = time.perf_counter()
+    G, params = selfinv_gate.full_width_generator(DEVICE, seed=2)
+    dets, inc_errs = phase_inception_vs_cpu(torch, G, params, card, tmp)
+    cli = phase_calc_metrics_cli(torch, gs, G, params, dets, card, tmp)
+    batch_err = _metric_batch_swap_err(torch, gs, G, params)
+    fixed = phase_fixed_points(torch, cli["torchvision"]["stats"]["gen"],
+                               card)
+    is_ppl = phase_is_ppl(torch, gs, G, params, dets["nvidia"], card)
+    del G, params
+    sg3 = phase_sg3_eq(torch, card)
+    for run in cli.values():
+        del run["stats"]
+    out = {"inception_card_vs_cpu": inc_errs, "cli": cli,
+           "batch_max_abs_err": batch_err,
+           "fixed_points": fixed, "is_ppl": is_ppl, "sg3": sg3,
+           "seconds": time.perf_counter() - t0}
+    log(f"phase 15 (metrics) in {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def phase_forward_repeat(torch, G, params, st):
     """Which of stage 1's inputs and forwards repeat their bits when run
     twice: the target render, the w statistics of 5000 latents, and one
@@ -3292,6 +3774,7 @@ def main():
         del enc, arc
         outputs = phase_outputs(torch, gs, G, params, st, tmp)
         training = phase_training(torch, gs, tmp)
+        metrics = phase_metrics(torch, gs, card, tmp)
     gather_times = phase_times(torch, gs, G, params, bw)
     _, seen = phase_step_times(torch, gs, params, st)
     splat_times = phase_splat_times(torch, gs, seen, bw)
@@ -3357,11 +3840,18 @@ def main():
                              "ganspace_edit": outputs["ganspace"][
                                  "launches"],
                              "train_gan": training["launches"][
-                                 "triplane_gather"]},
+                                 "triplane_gather"],
+                             **{f"calc_metrics_cli_{k}": v["launches"][
+                                 "triplane_gather"]
+                                for k, v in metrics["cli"].items()},
+                             "is50k_renders": metrics["is_ppl"][
+                                 "is_gathers"],
+                             "ppl2_wend": metrics["is_ppl"]["ppl_gathers"]},
         "max_abs_err": gather_err,
         "sample_mixed_chunk_max_abs_err": outputs["sample_mixed"][
             "max_abs_err"],
         "render_orbit_batch_max_abs_err": outputs["orbit"]["max_abs_err"],
+        "calc_metrics_batch_max_abs_err": metrics["batch_max_abs_err"],
         **gather_times}, {
         "name": "triplane_splat", "route": "cuda",
         "source": "tgi_torch/csrc/triplane_splat.cu",
@@ -3438,7 +3928,8 @@ def main():
                       "grad_norm_err_kernels_vs_plain": training["grads"],
                       "density_points": training["density"],
                       "tiny_step_card_vs_cpu": training["tiny"],
-                      "phase_s": training["seconds"]}}),
+                      "phase_s": training["seconds"]},
+        "metrics": metrics}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

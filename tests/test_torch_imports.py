@@ -110,3 +110,12 @@ def test_scan_covers_the_training_modules():
             "tgi_torch.utils.stats", "tgi_torch.utils.profiling",
             "tgi_torch.utils.draws", "tgi_torch.apps.train_gan"} <= set(
                 _modules())
+
+
+def test_scan_covers_the_metric_modules():
+    """The scans above reach every module of the metrics slice (FID, KID,
+    PR, IS, PPL, Inception, EQ and the alias-free generator)."""
+    assert {"tgi_torch.metrics.gan_metrics", "tgi_torch.metrics.features",
+            "tgi_torch.metrics.inception", "tgi_torch.metrics.equivariance",
+            "tgi_torch.apps.calc_metrics", "tgi_torch.ops.filtered_lrelu",
+            "tgi_torch.nn.synthesis3"} <= set(_modules())

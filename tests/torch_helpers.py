@@ -430,3 +430,68 @@ def gan_inputs(N=2, seed=0):
     c = np.concatenate([tiny_camera(0.4 * i - 0.2) for i in range(N)])
     real = rng.uniform(-1, 1, (N, 3, 64, 64)).astype(np.float32)
     return z, c.astype(np.float32), real
+
+
+# tests/test_sg3.py's alias-free generator: 32², 6 layers, 16 channels.
+TINY_SG3 = dict(z_dim=16, w_dim=16, img_resolution=32, channel_base=1024,
+                channel_max=16, num_layers=6, margin_size=4, num_fp16_res=0)
+
+
+def sg3_pair(seed=0):
+    """(tgi SG3 generator, its params, port SG3 generator, the same params
+    as CPU tensors) at TINY_SG3: the port's init, carried to tgi as
+    arrays, with the magnitude EMAs moved off 1 so that path carries."""
+    from tgi.nn import synthesis3 as j3
+    from tgi_torch.nn import synthesis3 as t3
+    gt = t3.SG3Generator(t3.SG3Config(**TINY_SG3))
+    pt = gt.init(torch.Generator().manual_seed(seed), device="cpu")
+    for i in range(TINY_SG3["num_layers"] + 1):
+        pt["synthesis"][f"L{i}"]["magnitude_ema"].fill_(1.0 + 0.1 * i)
+    gj = j3.SG3Generator(j3.SG3Config(**TINY_SG3))
+    pj = jax.tree.map(lambda t: jnp.asarray(t.numpy()), pt)
+    return gj, pj, gt, pt
+
+
+def inception_params(seed, classes):
+    """A params tree of the skeleton's shapes: conv weights N(0, 0.05²)
+    (above tgi's init's 0.02, so that activations stay O(1) 94 layers
+    deep), BN beta/mean N(0, 0.1²), var U(0.5, 1), gamma U(0.8, 1.2),
+    and a ``classes``-way head."""
+    from tgi_torch.metrics.inception import inception_spec
+    rng = np.random.RandomState(seed)
+
+    def node(shape):
+        c = shape[0]
+        return {"conv": {"weight": rng.randn(*shape).astype(np.float32)
+                         * 0.05},
+                "bn": {"weight": rng.uniform(0.8, 1.2, c).astype(np.float32),
+                       "bias": rng.randn(c).astype(np.float32) * 0.1,
+                       "running_mean": rng.randn(c).astype(np.float32)
+                       * 0.1,
+                       "running_var": rng.uniform(0.5, 1, c).astype(
+                           np.float32)}}
+
+    p = {name: node(s) if isinstance(s, tuple) else
+         {b: node(bs) for b, bs in s.items()}
+         for name, s in inception_spec().items()}
+    p["fc"] = {"weight": rng.randn(classes, 2048).astype(np.float32) * 0.01,
+               "bias": rng.randn(classes).astype(np.float32) * 0.01}
+    return p
+
+
+def fold_nvidia_bn(sd, eps):
+    """An NVIDIA-named state dict with each conv's BatchNorm (``gamma``,
+    ``beta``, ``mean``, ``var``) folded at ``eps`` into its ``weight``
+    and a ``bias``: the detector's other published layout."""
+    out = {}
+    for key, v in sd.items():
+        prefix, leaf = key.rsplit(".", 1)
+        if f"{prefix}.gamma" not in sd:
+            out[key] = v
+        elif leaf == "weight":
+            scale = sd[f"{prefix}.gamma"] * torch.rsqrt(sd[f"{prefix}.var"]
+                                                        + eps)
+            out[key] = v * scale[:, None, None, None]
+            out[f"{prefix}.bias"] = (sd[f"{prefix}.beta"]
+                                     - sd[f"{prefix}.mean"] * scale)
+    return out

@@ -97,27 +97,35 @@ def warping_features(params, images):
     return vgg16_features(params, images, outputs=(15,))[15]
 
 
-def lpips_features(params, head_params, images_255):
-    """NVIDIA metric-VGG LPIPS embedding of [0, 255] images: a flat
-    [N, D] vector such that sum((a - b)**2) between two embeddings is
-    the LPIPS distance (w_projector.py:112, 215-218)."""
+def lpips_stages(params, head_params, images_255):
+    """The LPIPS stages of [0, 255] images: each [N, C, H, W] activation
+    unit-normalized over its channels at every position and scaled by
+    the square root of the clamped LPIPS head weight."""
     dev = images_255.device
     mean = torch.tensor(IMAGENET_MEAN, device=dev)[None, :, None, None]
     std = torch.tensor(IMAGENET_STD, device=dev)[None, :, None, None]
     x = (images_255 / 255.0 - mean) / std
     acts = vgg16_features(params, x, outputs=LPIPS_STAGES)
-    feats = []
-    N = images_255.shape[0]
+    out = []
     for i, idx in enumerate(LPIPS_STAGES):
         a = acts[idx]
         # channel-wise unit normalization
         a = a * torch.rsqrt(torch.sum(torch.square(a), dim=1, keepdim=True)
                             + 1e-10)
         w = head_params[f"lin{i}"]["weight"]
-        a = a * torch.sqrt(torch.clamp(w, min=0.0))[None, :, None, None]
-        hw = a.shape[2] * a.shape[3]
-        feats.append((a / hw ** 0.5).reshape(N, -1))
-    return torch.cat(feats, dim=-1)
+        out.append(a * torch.sqrt(torch.clamp(w, min=0.0))[None, :, None,
+                                                             None])
+    return out
+
+
+def lpips_features(params, head_params, images_255):
+    """NVIDIA metric-VGG LPIPS embedding of [0, 255] images: a flat
+    [N, D] vector such that sum((a - b)**2) between two embeddings is
+    the LPIPS distance (w_projector.py:112, 215-218)."""
+    N = images_255.shape[0]
+    return torch.cat([(a / (a.shape[2] * a.shape[3]) ** 0.5).reshape(N, -1)
+                      for a in lpips_stages(params, head_params,
+                                            images_255)], dim=-1)
 
 
 def lpips_distance(params, head_params, img_a, img_b):
