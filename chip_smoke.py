@@ -173,6 +173,29 @@ a tiny SG3 on the card against its CPU run, images within SG3_CPU_TOL
 and the three PSNRs with fixed draws within EQ_DB_TOL dB. Every card
 number is printed beside the card's name and power limit.
 
+Phase 16 drives a user's way in from a raw photo or a TF-era pickle,
+and the render options the port took over from ``tgi``: (a) a TF-era
+``(G, D, Gs)`` StyleGAN2 pickle of FFHQ config F (1024², fmap_base
+16384, 8 mapping layers, minibatch-std groups of 4), drawn and written
+here (``tf_network_pickle``), read through ``load_network_pkl`` onto the
+card; Gs at batch 4 against the CPU at batch 1 and D at batch 4 against
+the CPU within SG2_CPU_TOL of the largest value, both timed, then
+``legacy_convert.convert_pickle`` to the port's checkpoint, read back
+bit for bit; (b) the seed-0 generator with ``density_noise=1`` and
+random SR noise from one seeded CUDA generator: a 512² render through
+the gather against the plain sampler from the same planes (within
+SWAP_TOL), the coarse and fine pass handed one and the same normals
+(``tgi``'s reuse), one step's gradients kernels vs plain within
+GRAD_TOL, 2 gathers a render and 2 splats a backward; float16 and bf16
+renders against float32 (float16 at least FP16_PSNR_MIN dB, its
+reduced-precision blocks seen running in float16); a render at a ``gaussian_camera_pose`` draw;
+(c) a 1024 x 768 photo with the seed-2 generator's render pasted in, a
+drawn 68-point predictor at dlib's defaults (``drawn_predictor``) saved
+with ``save_shape_predictor``, ``align_data --predictor --size 512``,
+``dataset_tool`` to a zip read back through ``ImageFolderDataset`` bit
+for bit, and ``run_pti`` on the aligned folder at 10 + 5 steps with its
+gathers and splats counted.
+
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the tgi_torch package beside it, the
@@ -638,6 +661,204 @@ def reference_pickle(cfg, params, dtype=None):
                 sys.modules.pop(name, None)
             else:
                 sys.modules[name] = mod
+
+
+# ---------------------------------------------------------------------------
+# Phase 16's inputs: TF-era StyleGAN2 pickles and dlib shape predictors,
+# drawn from a seed (no such file is in the tree).
+
+
+def tf_variables(rng, kind, *, resolution, fmap_base, fmap_max=512,
+                 latent=512, dlatent=512, mapping_layers=8, label_size=0,
+                 scale=1.0):
+    """The variables of a TF StyleGAN2 network (``kind`` "G" or "D") in
+    the layouts the TF export stores (legacy.py:173-205, :266-290): conv
+    [kh, kw, in, out], dense [in, out], const [1, C, 4, 4], noise [1, 1,
+    r, r]; standard normal times ``scale`` from numpy's ``rng``. Channels
+    are ``min(2 * fmap_base // res, fmap_max)`` per resolution. Returns
+    (top-level, mapping, synthesis) lists for G, one list for D."""
+    import numpy as np
+
+    def draw(*shape):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    log2 = int(math.log2(resolution))
+    ch = {2 ** i: min(2 * fmap_base // 2 ** i, fmap_max)
+          for i in range(2, log2 + 1)}
+    if kind == "D":
+        cmap = ch[4] if label_size else 1
+        out = []
+
+        def conv(name, cin, cout, k=3, bias=True):
+            out.append((f"{name}/weight", draw(k, k, cin, cout)))
+            if bias:
+                out.append((f"{name}/bias", draw(cout)))
+
+        conv(f"{resolution}x{resolution}/FromRGB", 3, ch[resolution], k=1)
+        for r in (2 ** i for i in range(log2, 2, -1)):
+            conv(f"{r}x{r}/Conv0", ch[r], ch[r])
+            conv(f"{r}x{r}/Conv1_down", ch[r], ch[r // 2])
+            conv(f"{r}x{r}/Skip", ch[r], ch[r // 2], k=1, bias=False)
+        conv("4x4/Conv", ch[4] + 1, ch[4])
+        if label_size:
+            out += [("LabelEmbed/weight", draw(label_size, cmap)),
+                    ("LabelEmbed/bias", draw(cmap))]
+        out += [("4x4/Dense0/weight", draw(ch[4] * 16, ch[4])),
+                ("4x4/Dense0/bias", draw(ch[4])),
+                ("Output/weight", draw(ch[4], cmap)),
+                ("Output/bias", draw(cmap))]
+        return out
+
+    mapping = []
+    if label_size:
+        mapping += [("LabelEmbed/weight", draw(label_size, dlatent)),
+                    ("LabelEmbed/bias", draw(dlatent))]
+    width = latent + (dlatent if label_size else 0)
+    for i in range(mapping_layers):
+        mapping += [(f"Dense{i}/weight", draw(width, dlatent)),
+                    (f"Dense{i}/bias", draw(dlatent))]
+        width = dlatent
+
+    def layer(name, cin, cout, k):
+        out = [(f"{name}/weight", draw(k, k, cin, cout)),
+               (f"{name}/bias", draw(cout))]
+        if k == 3:
+            out.append((f"{name}/noise_strength", np.float32(
+                rng.randn() * 0.05)))
+        return out + [(f"{name}/mod_weight", draw(dlatent, cin)),
+                      (f"{name}/mod_bias", draw(cin))]
+
+    synthesis = [("4x4/Const/const", draw(1, ch[4], 4, 4))]
+    synthesis += layer("4x4/Conv", ch[4], ch[4], 3)
+    synthesis += layer("4x4/ToRGB", ch[4], 3, 1)
+    noise = [(0, 4)]
+    for r in (2 ** i for i in range(3, log2 + 1)):
+        lg = int(math.log2(r))
+        synthesis += layer(f"{r}x{r}/Conv0_up", ch[r // 2], ch[r], 3)
+        synthesis += layer(f"{r}x{r}/Conv1", ch[r], ch[r], 3)
+        synthesis += layer(f"{r}x{r}/ToRGB", ch[r], 3, 1)
+        noise += [(2 * lg - 5, r), (2 * lg - 4, r)]
+    synthesis += [(f"noise{i}", draw(1, 1, r, r)) for i, r in noise]
+    top = [("dlatent_avg", draw(dlatent)), ("lod", np.float32(0.0))]
+    return top, mapping, synthesis
+
+
+def tf_network_pickle(g_kwargs, d_kwargs, seed, scale=1.0):
+    """The bytes of a TF-era ``(G, D, Gs)`` pickle: three
+    ``dnnlib.tflib.network.Network`` objects (version 4) with their
+    ``static_kwargs``, ``variables`` and ``components`` (G's mapping and
+    synthesis), as a TF StyleGAN2 export holds them (legacy.py:64-84).
+    ``g_kwargs`` / ``d_kwargs`` are the static kwargs (``resolution``,
+    ``fmap_base``, ...); the variables are drawn by :func:`tf_variables`
+    from ``seed``, G and Gs apart. The Network class is a stand-in in
+    modules registered in ``sys.modules`` only while pickling."""
+    import pickle
+    import types
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    shapes = dict(resolution=g_kwargs.get("resolution", 1024),
+                  fmap_base=g_kwargs.get("fmap_base", 16384),
+                  fmap_max=g_kwargs.get("fmap_max", 512),
+                  label_size=g_kwargs.get("label_size", 0))
+    g_shapes = dict(shapes, latent=g_kwargs.get("latent_size", 512),
+                    dlatent=g_kwargs.get("dlatent_size", 512),
+                    mapping_layers=g_kwargs.get("mapping_layers", 8))
+    d_shapes = dict(resolution=d_kwargs.get("resolution", 1024),
+                    fmap_base=d_kwargs.get("fmap_base", 16384),
+                    fmap_max=d_kwargs.get("fmap_max", 512),
+                    label_size=d_kwargs.get("label_size", 0))
+    modules = {k: types.ModuleType(k)
+               for k in ("dnnlib", "dnnlib.tflib", "dnnlib.tflib.network")}
+
+    class Network:
+        def __init__(self, **kw):
+            self.__dict__.update(kw)
+
+    Network.__module__ = "dnnlib.tflib.network"
+    Network.__qualname__ = Network.__name__ = "Network"
+    modules["dnnlib.tflib.network"].Network = Network
+
+    def generator(name):
+        top, mapping, synthesis = tf_variables(rng, "G", scale=scale,
+                                               **g_shapes)
+        return Network(version=4, name=name, static_kwargs=dict(g_kwargs),
+                       variables=top, components={
+                           "mapping": Network(
+                               version=4, name=f"{name}_mapping",
+                               static_kwargs={}, variables=mapping,
+                               components={}),
+                           "synthesis": Network(
+                               version=4, name=f"{name}_synthesis",
+                               static_kwargs={}, variables=synthesis,
+                               components={})})
+
+    G = generator("G")
+    D = Network(version=4, name="D", static_kwargs=dict(d_kwargs),
+                variables=tf_variables(rng, "D", scale=scale, **d_shapes),
+                components={})
+    Gs = generator("Gs")
+    saved = {k: sys.modules.get(k) for k in modules}
+    sys.modules.update(modules)
+    try:
+        return pickle.dumps((G, D, Gs), protocol=4)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def mean_face():
+    """A plausible 68-point face in dlib's layout, in normalized [0, 1]²
+    coordinates (the initial shape of ``tests/test_landmarks.py``)."""
+    import numpy as np
+    lm = np.zeros((68, 2))
+    lm[0:17] = np.stack([np.linspace(0.1, 0.9, 17),
+                         0.45 + 0.35 * np.sin(np.linspace(0, np.pi, 17))], 1)
+    lm[17:22] = np.stack([np.linspace(0.2, 0.4, 5), np.full(5, 0.30)], 1)
+    lm[22:27] = np.stack([np.linspace(0.6, 0.8, 5), np.full(5, 0.30)], 1)
+    lm[27:31] = np.stack([np.full(4, 0.5), np.linspace(0.35, 0.55, 4)], 1)
+    lm[31:36] = np.stack([np.linspace(0.42, 0.58, 5), np.full(5, 0.60)], 1)
+    ang = np.linspace(0, 2 * np.pi, 6, endpoint=False)
+    lm[36:42] = np.stack([0.33 + 0.05 * np.cos(ang),
+                          0.40 + 0.025 * np.sin(ang)], 1)
+    lm[42:48] = np.stack([0.67 + 0.05 * np.cos(ang),
+                          0.40 + 0.025 * np.sin(ang)], 1)
+    ang12 = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+    lm[48:60] = np.stack([0.5 + 0.12 * np.cos(ang12),
+                          0.72 + 0.05 * np.sin(ang12)], 1)
+    ang8 = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+    lm[60:68] = np.stack([0.5 + 0.06 * np.cos(ang8),
+                          0.72 + 0.02 * np.sin(ang8)], 1)
+    return lm
+
+
+def drawn_predictor(seed, cascades=10, trees=500, depth=4, features=400,
+                    scale=1e-3):
+    """A 68-point dlib ``shape_predictor`` (``tgi_torch.utils.landmarks``)
+    with random splits, thresholds, anchors and offsets and leaves of
+    ``scale`` (so the landmarks stay near the mean face), at dlib's
+    ``shape_predictor_training_options`` defaults unless told otherwise:
+    cascade depth 10, 500 trees per level, tree depth 4, a feature pool
+    of 400."""
+    import numpy as np
+    from tgi_torch.utils.landmarks import RegressionTree, ShapePredictor
+    rng = np.random.RandomState(seed)
+    shape0 = mean_face().reshape(-1)
+    n_splits = 2 ** depth - 1
+    forests, anchors, deltas = [], [], []
+    for _ in range(cascades):
+        forests.append([RegressionTree(
+            rng.randint(0, features, (n_splits, 2)).astype(np.int64),
+            rng.randn(n_splits) * 8,
+            rng.randn(n_splits + 1, shape0.size) * scale)
+            for _ in range(trees)])
+        anchors.append(rng.randint(0, 68, features).astype(np.int64))
+        deltas.append(rng.randn(features, 2) * 0.05)
+    return ShapePredictor(shape0, forests, anchors, deltas)
 
 
 def phase_generate(torch, gs, G, params, tmp):
@@ -3064,6 +3285,437 @@ def phase_metrics(torch, gs, card, tmp):
     return out
 
 
+# Phase 16: from a raw photo to an inversion, TF-era StyleGAN2 pickles and
+# the render options. 16a: FFHQ config F (legacy.py's TF export of
+# StyleGAN2 at 1024², fmap_base 16384, fmap_max 512, 8 mapping layers,
+# minibatch-std groups of 4), drawn; Gs on the card at batch 4 against
+# the CPU at batch 1, D at batch 4 on both.
+SG2_G_KWARGS = dict(latent_size=512, dlatent_size=512, resolution=1024,
+                    fmap_base=16384, fmap_max=512, mapping_layers=8,
+                    truncation_psi=0.5, style_mixing_prob=0.9)
+SG2_D_KWARGS = dict(resolution=1024, fmap_base=16384, fmap_max=512,
+                    mbstd_group_size=4)
+SG2_BATCH = 4
+SG2_CPU_TOL = 1e-5         # card vs CPU, max abs / max |CPU|
+FP16_PSNR_MIN = 55.0       # dB, a float16 render against float32 (float16
+#                            read 67.10 dB and bf16 45.39 dB on the card)
+PHOTO_STEPS = (10, 5)      # run_pti's projection and tuning steps
+FREE_PAIRS = 4             # 16b's renders with the backbone recomputed
+
+
+def phase_sg2_tf(torch, tmp, card):
+    """16a: a TF-era ``(G, D, Gs)`` pickle of FFHQ config F, drawn and
+    written here, read through ``load_network_pkl`` onto the card; Gs at
+    batch 4 against the CPU at batch 1 and D at batch 4 against the CPU,
+    within SG2_CPU_TOL of the largest value (deterministic cuDNN);
+    ``legacy_convert.convert_pickle`` to the port's checkpoint, read back
+    bit for bit. Returns the times and errors."""
+    from tgi_torch.apps.legacy_convert import convert_pickle
+    from tgi_torch.io import load_checkpoint, load_network_pkl
+    from tgi_torch.models.stylegan2 import sg2_generator_apply
+    from tgi_torch.nn.discriminator import discriminator_apply
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "stylegan2-ffhq-config-f.pkl")
+    with open(path, "wb") as f:
+        f.write(tf_network_pickle(SG2_G_KWARGS, SG2_D_KWARGS, seed=16))
+    built = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    nets = load_network_pkl(path, device=DEVICE)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    gs_net, d_net = nets["G_ema"], nets["D"]
+    n_params = {k: sum(t.numel() for t in _leaves(nets[k].params))
+                for k in ("G", "D", "G_ema")}
+    log(f"16a: TF (G, D, Gs) pickle of config F: "
+        f"{os.path.getsize(path) / 2 ** 20:.1f} MiB drawn and written in "
+        f"{built:.1f} s, read and converted onto the card in {read_s:.2f} "
+        f"s; parameters {n_params}; Gs {gs_net.config}")
+    R = SG2_G_KWARGS["resolution"]
+    check(gs_net.config.img_resolution == R
+          and gs_net.config.channel_base == 2 * SG2_G_KWARGS["fmap_base"]
+          and gs_net.config.num_ws == 2 * int(math.log2(R)) - 2,
+          f"Gs config {gs_net.config}")
+
+    gen = torch.Generator().manual_seed(16)
+    z = torch.randn(SG2_BATCH, gs_net.config.z_dim, generator=gen)
+    c = torch.zeros(SG2_BATCH, 0)
+    zd, cd = z.to(DEVICE), c.to(DEVICE)
+    cpu_g = {k: _to(v, "cpu") for k, v in gs_net.params.items()}
+    cpu_d = {k: _to(v, "cpu") for k, v in d_net.params.items()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            img = sg2_generator_apply(gs_net.params, zd, cd, gs_net.config)
+            logits = discriminator_apply(d_net.params, img, cd,
+                                         d_net.config)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img_cpu = sg2_generator_apply(cpu_g, z[:1], c[:1],
+                                          gs_net.config)
+            logits_cpu = discriminator_apply(cpu_d, img.cpu(), c,
+                                             d_net.config)
+            cpu_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(tuple(img.shape) == (SG2_BATCH, 3, R, R)
+          and bool(torch.isfinite(img).all()), f"Gs image {img.shape}")
+    g_err = _rel_err(img[:1].cpu(), img_cpu)
+    d_err = _rel_err(logits.cpu(), logits_cpu)
+    log(f"16a: Gs {R}² card (batch {SG2_BATCH}) vs CPU (batch 1): max "
+        f"|image| {img_cpu.abs().max().item():.4g}, max abs err / max "
+        f"{g_err:.3g}; D logits {logits.flatten().tolist()}, card vs CPU "
+        f"{d_err:.3g} (CPU forwards {cpu_s:.1f} s)")
+    check(g_err <= SG2_CPU_TOL and d_err <= SG2_CPU_TOL,
+          f"config F card vs CPU: Gs {g_err}, D {d_err} > {SG2_CPU_TOL}")
+    with torch.no_grad():
+        g_ms = cuda_ms(torch, lambda: sg2_generator_apply(
+            gs_net.params, zd, cd, gs_net.config), iters=10, warmup=2)
+        d_ms = cuda_ms(torch, lambda: discriminator_apply(
+            d_net.params, img, cd, d_net.config), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    ckpt = os.path.join(tmp, "stylegan2-ffhq-config-f.ckpt")
+    t0 = time.perf_counter()
+    kinds = convert_pickle(path, ckpt)
+    convert_s = time.perf_counter() - t0
+    back = load_checkpoint(ckpt)
+    for name in ("G", "D", "G_ema"):
+        got = dict(_named_leaves(back["params"][name]))
+        want = {k: v.cpu() for k, v in _named_leaves(nets[name].params)}
+        check(set(got) == set(want) and all(
+            torch.equal(got[k], want[k]) for k in want),
+              f"{name}: the checkpoint does not read back bit for bit")
+        check(back["config"][name]["kind"] == kinds[name],
+              f"{name}: kind {back['config'][name]}")
+    log(f"16a: legacy_convert.convert_pickle (CPU) in {convert_s:.1f} s -> "
+        f"{os.path.getsize(ckpt) / 2 ** 20:.1f} MiB, {kinds}, every tensor "
+        f"read back bit for bit; Gs forward {g_ms:.2f} ms at batch "
+        f"{SG2_BATCH}, D forward {d_ms:.2f} ms at batch {SG2_BATCH}, peak "
+        f"{peak:.2f} GiB [{card}]")
+    out = {"read_convert_s": read_s, "legacy_convert_s": convert_s,
+           "gs_forward_ms_batch4": g_ms, "d_forward_ms_batch4": d_ms,
+           "peak_gib": peak, "gs_card_vs_cpu": g_err,
+           "d_card_vs_cpu": d_err, "params": n_params}
+    del nets, gs_net, d_net, cpu_g, cpu_d
+    return out
+
+
+def phase_render_options(torch, gs, G, params, card):
+    """16b: the seed-0 generator with ``density_noise=1`` and random SR
+    noise, every draw from one seeded CUDA generator, deterministic
+    cuDNN: a 512² render through the gather and through the plain sampler
+    from one and the same planes, so that the two differ only in the
+    sampler (image, image_raw and image_depth within SWAP_TOL), the
+    coarse and fine pass given one and the same normals (tgi's reuse of
+    its key), one step's gradients kernels vs plain from one backbone
+    forward within GRAD_TOL per weight, 2 gathers a render and 2 splats a
+    backward; a float16 and a bf16 render against float32 (PSNR, float16
+    >= FP16_PSNR_MIN dB, with float16 activations seen in its
+    reduced-precision blocks); a render at a ``gaussian_camera_pose``
+    draw. Logged beside: how far the backbone's planes move when
+    recomputed without deterministic cuDNN, kernel vs plain when each
+    render recomputes them (FREE_PAIRS times), and the kernel render's
+    difference from itself."""
+    import tgi_torch.nn.synthesis as synthesis
+    import tgi_torch.render.renderer as renderer
+    from tgi_torch.apps.gen_samples import seed_z
+    from tgi_torch.models.generator import TriPlaneGenerator
+    from tgi_torch.render.cameras import (fov_to_intrinsics,
+                                          gaussian_camera_pose, pack_camera)
+
+    Go = TriPlaneGenerator(G.cfg.with_rendering(
+        density_noise=1.0, superresolution_noise_mode="random"))
+    with torch.no_grad():
+        ws = Go.mapping(params, seed_z(0, G.cfg.z_dim, DEVICE),
+                        _camera(torch, 0.0), truncation_psi=0.7,
+                        truncation_cutoff=14)
+        planes_free = Go.backbone_planes(params, ws)
+    cam = _camera(torch, 0.35)
+    seen = []
+    real_run_model = renderer.run_model
+
+    def spy(*args, sigma_noise=None, **kw):
+        seen.append(sigma_noise)
+        return real_run_model(*args, sigma_noise=sigma_noise, **kw)
+
+    def render(sampler, planes):
+        renderer.sample_triplanes = sampler
+        try:
+            return Go.synthesis(params, ws, cam, det=True, planes=planes,
+                                generator=torch.Generator(
+                                    device=DEVICE).manual_seed(16))
+        finally:
+            renderer.sample_triplanes = gs.sample_triplanes
+
+    keys = ("image", "image_raw", "image_depth")
+    renderer.run_model = spy
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            planes = Go.backbone_planes(params, ws)
+            zero_counts(gs)
+            got = render(gs.sample_triplanes, planes)
+            torch.cuda.synchronize()
+            launches = counts(gs)
+            want = render(gs.sample_triplanes_plain, planes)
+            torch.cuda.synchronize()
+            after_plain = counts(gs)
+            again = render(gs.sample_triplanes, planes)
+    finally:
+        renderer.run_model = real_run_model
+        torch.backends.cudnn.deterministic = False
+    check(launches["triplane_gather"] == 2 and after_plain == launches,
+          f"the options render launched {launches}, then {after_plain}")
+    rk, res = Go.cfg.rendering_kwargs, Go.cfg.neural_rendering_resolution
+    check(rk["depth_resolution"] == rk["depth_resolution_importance"]
+          and len(seen) == 6 and seen[0] is seen[1] and seen[0] is not None
+          and tuple(seen[0].shape) == (1, res * res * rk[
+              "depth_resolution"], 1),
+          "the coarse and fine passes did not get one and the same noise")
+    err = {k: (got[k] - want[k]).abs().max().item() for k in keys}
+    repeat = {k: (got[k] - again[k]).abs().max().item() for k in keys}
+    planes_moved = (planes_free - planes).abs().max().item()
+    # Kernel vs plain where each render recomputes its own backbone
+    # (default cuDNN): the planes move at the last bits from one forward
+    # to the next, and the importance pass under density noise can carry
+    # that far into the image. Logged, not held.
+    recomputed = []
+    with torch.no_grad():
+        for _ in range(FREE_PAIRS):
+            a, b = (render(gs.sample_triplanes, None),
+                    render(gs.sample_triplanes_plain, None))
+            recomputed.append(max((a[k] - b[k]).abs().max().item()
+                                  for k in keys))
+    with torch.no_grad():
+        base = G.synthesis(params, ws, cam, det=True, planes=planes)
+    moved = (got["image"] - base["image"]).abs().max().item()
+    log(f"16b: density_noise 1 + random SR noise, "
+        f"{Go.cfg.img_resolution}² render from one set of planes: kernel "
+        f"vs plain sampler max abs err {err}; the kernel render again "
+        f"{repeat}; the backbone's planes recomputed without "
+        f"deterministic cuDNN move by {planes_moved:.3g}, and kernel vs "
+        f"plain with the backbone recomputed for each render reads "
+        f"{[f'{e:.3g}' for e in recomputed]}; coarse and fine "
+        f"noise one tensor {tuple(seen[0].shape)}; max |image - noiseless "
+        f"image| {moved:.4g}; launches {launches}")
+    check(max(err.values()) <= SWAP_TOL and moved > 1e-3,
+          f"options render: kernel vs plain {err} > {SWAP_TOL} or the "
+          f"noise moved nothing ({moved})")
+
+    weights = [w.to(DEVICE) for w in _loss_weights(torch, G)]
+    leaves = [_get(params, p) for p in GRAD_PATHS]
+    for t in leaves:
+        t.requires_grad_(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        planes = Go.backbone_planes(params, ws)
+        zero_counts(gs)
+        kernel = torch.autograd.grad(
+            _scalar_loss(render(gs.sample_triplanes, planes), weights),
+            leaves, retain_graph=True)
+        torch.cuda.synchronize()
+        grad_launches = counts(gs)
+        plain = torch.autograd.grad(
+            _scalar_loss(render(gs.sample_triplanes_plain, planes), weights),
+            leaves)
+        del planes
+    finally:
+        torch.backends.cudnn.deterministic = False
+        for t in leaves:
+            t.requires_grad_(False)
+    check(grad_launches["triplane_gather"] == 2
+          and grad_launches["triplane_splat"] == 2,
+          f"one options step launched {grad_launches}")
+    grad_errs = {}
+    for path, k, p in zip(GRAD_PATHS, kernel, plain):
+        name = ".".join(path)
+        grad_errs[name] = _norm_err(k, p)
+        check(k.abs().max().item() > 0 and grad_errs[name] <= GRAD_TOL,
+              f"{name}: options gradient kernels vs plain "
+              f"{grad_errs[name]} > {GRAD_TOL}")
+    log(f"16b: one step's gradients under the options, kernels vs plain "
+        f"sampler from one backbone forward, norm err {grad_errs}; "
+        f"launches {grad_launches}")
+
+    psnr, act_dtypes = {}, {}
+    out32 = render_once(torch, G, params)
+    real_layer = synthesis.synthesis_layer_apply
+    for dtype in ("float16", "bfloat16"):
+        Gx = TriPlaneGenerator(dataclasses.replace(G.cfg, fused_dtype=dtype))
+        dtypes = set()
+
+        def layer_spy(p, x, *a, _dtypes=dtypes, **kw):
+            _dtypes.add(x.dtype)
+            return real_layer(p, x, *a, **kw)
+
+        synthesis.synthesis_layer_apply = layer_spy
+        try:
+            out = render_once(torch, Gx, params)
+        finally:
+            synthesis.synthesis_layer_apply = real_layer
+        d = out["image"] - out32["image"]
+        check(bool(torch.isfinite(out["image"]).all()),
+              f"non-finite {dtype} render")
+        check(getattr(torch, dtype) in dtypes
+              and dtypes <= {torch.float32, getattr(torch, dtype)},
+              f"the {dtype} render's layers ran in {dtypes}")
+        act_dtypes[dtype] = sorted(str(t).split(".")[1] for t in dtypes)
+        psnr[dtype] = 10 * math.log10(4.0 / (d.square().mean().item()
+                                             or 1e-30))
+    log(f"16b: {G.cfg.img_resolution}² render against float32, PSNR "
+        f"(peak-to-peak 2): "
+        f"float16 {psnr['float16']:.2f} dB, bfloat16 "
+        f"{psnr['bfloat16']:.2f} dB; activations {act_dtypes} [{card}]")
+    check(psnr["float16"] >= FP16_PSNR_MIN,
+          f"float16 render PSNR {psnr['float16']} < {FP16_PSNR_MIN} dB")
+
+    cam2world = gaussian_camera_pose(
+        torch.Generator(device=DEVICE).manual_seed(3), math.pi / 2,
+        math.pi / 2, 0.3, 0.15, 2.7, 1, device=DEVICE)
+    c = pack_camera(cam2world, fov_to_intrinsics(18.837, device=DEVICE))
+    with torch.no_grad():
+        out = G.synthesis(params, ws, c, det=True)
+    depth = out["image_depth"]
+    origin = cam2world[0, :3, 3].tolist()
+    log(f"16b: render at a gaussian_camera_pose draw (CUDA generator, "
+        f"seed 3): camera at {[round(v, 4) for v in origin]}, image mean "
+        f"{out['image'].mean().item():.4g}, depth "
+        f"[{depth.min().item():.4f}, {depth.max().item():.4f}]")
+    check(bool(torch.isfinite(out["image"]).all())
+          and abs(cam2world[0, :3, 3].norm().item() - 2.7) < 1e-4,
+          "gaussian_camera_pose render")
+    return {"launches": launches, "grad_launches": grad_launches,
+            "max_abs_err": err, "kernel_repeat_max_abs_err": repeat,
+            "planes_moved_nondeterministic": planes_moved,
+            "max_abs_err_backbone_recomputed": recomputed,
+            "grad_norm_err": grad_errs, "psnr": psnr,
+            "activation_dtypes": act_dtypes}
+
+
+def phase_photo_to_inversion(torch, gs, tmp, card):
+    """16c: a raw 1024 x 768 photo (the seed-2 generator's target render,
+    scaled to 600² and pasted off centre), a drawn predictor at dlib's
+    defaults saved with ``save_shape_predictor``, ``align_data
+    --predictor --size 512``, ``dataset_tool`` to a zip read back through
+    ``ImageFolderDataset`` (the aligned PNG bit for bit), and ``run_pti``
+    on the aligned folder at PHOTO_STEPS with every count set to 0 just
+    before it."""
+    import numpy as np
+    from PIL import Image
+    from tgi_torch.apps import align_data, dataset_tool
+    from tgi_torch.apps.run_pti import run_pti
+    from tgi_torch.scripts import selfinv_gate
+    from tgi_torch.train.dataset import ImageFolderDataset
+    from tgi_torch.utils import alignment, landmarks
+
+    from tgi_torch.apps.gen_samples import seed_z
+    G, params = selfinv_gate.full_width_generator(DEVICE, seed=2)
+    with torch.no_grad():   # stage1_target's render: seed 2, yaw -0.25
+        ws = G.mapping(params, seed_z(2, G.cfg.z_dim, DEVICE),
+                       _camera(torch, 0.0), truncation_psi=0.7,
+                       truncation_cutoff=14)
+        img = G.synthesis(params, ws, _camera(torch, -0.25),
+                          det=True)["image"].clamp(-1, 1)
+    face = Image.fromarray(((img[0].permute(1, 2, 0).cpu().numpy() + 1)
+                            * 127.5).round().clip(0, 255).astype(np.uint8))
+    canvas = Image.new("RGB", (1024, 768), (40, 50, 60))
+    canvas.paste(face.resize((600, 600), Image.LANCZOS), (250, 90))
+    raw, aligned = os.path.join(tmp, "photo_raw"), os.path.join(
+        tmp, "photo_aligned")
+    os.makedirs(raw)
+    canvas.save(os.path.join(raw, "photo.png"))
+
+    t0 = time.perf_counter()
+    sp = drawn_predictor(17)
+    drawn_s = time.perf_counter() - t0
+    pred = os.path.join(tmp, "shape_predictor_68_drawn.dat")
+    t0 = time.perf_counter()
+    landmarks.save_shape_predictor(sp, pred)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        align_data.main(["--src", raw, "--dst", aligned, "--predictor",
+                         pred, "--size", "512"])
+    except SystemExit as e:
+        check(e.code == 0, f"align_data exited {e.code}")
+    align_cli_s = time.perf_counter() - t0
+    photo = np.asarray(canvas)
+    t0 = time.perf_counter()
+    box = landmarks.detect_face_box(photo)
+    lms = landmarks.predict_landmarks(sp, photo, box)
+    cascade_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    crop = alignment.align_face(canvas, lms, output_size=512)
+    align_s = time.perf_counter() - t0
+    with open(os.path.join(aligned, "_landmarks.json")) as f:
+        table = json.load(f)
+    out_png = os.path.join(aligned, "photo.png")
+    check(np.array_equal(np.asarray(table["photo.png"]), lms)
+          and np.array_equal(np.asarray(Image.open(out_png)),
+                             np.asarray(crop)),
+          "align_data's landmarks or crop differ from the library's")
+    spread = np.abs(lms - (np.asarray(box[:2]) + mean_face() * (
+        box[2] - box[0]))).max()
+    log(f"16c: predictor at dlib's defaults (10 x 500 trees of depth 4, "
+        f"pool 400) drawn in {drawn_s:.1f} s, saved "
+        f"({os.path.getsize(pred) / 2 ** 20:.1f} MiB) in {save_s:.1f} s; "
+        f"align_data --predictor --size 512 in {align_cli_s:.1f} s "
+        f"(reading the .dat, the cascade, the warp); per face: landmark "
+        f"cascade {cascade_s * 1e3:.1f} ms, alignment {align_s * 1e3:.1f} "
+        f"ms; landmarks within {spread:.3g} px of the mean face in the box")
+
+    zpath = os.path.join(tmp, "photo_dataset.zip")
+    check(dataset_tool.convert(aligned, zpath) == 1, "dataset_tool count")
+    ds = ImageFolderDataset(zpath)
+    arr, label = ds[0]
+    ds.close()
+    png = np.asarray(Image.open(out_png), np.float32)
+    check(len(ds) == 1 and np.array_equal(
+        arr, png.transpose(2, 0, 1) / 127.5 - 1) and not label.any(),
+          "the dataset's image is not the aligned PNG")
+    log("16c: dataset_tool -> zip -> ImageFolderDataset: the aligned PNG "
+        "bit for bit, no labels")
+
+    steps1, steps2 = PHOTO_STEPS
+    torch.cuda.synchronize()
+    zero_counts(gs)
+    t0 = time.perf_counter()
+    results = run_pti(aligned, os.path.join(tmp, "photo_pti"), G=G,
+                      gen_params=params, first_inv_steps=steps1,
+                      max_pti_steps=steps2, gen_video=False, seed=0,
+                      device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(gs)
+    log(f"16c: run_pti on the aligned photo, {steps1} + {steps2} steps, in "
+        f"{wall:.1f} s: {results}; launches {launches} [{card}]")
+    check(len(results) == 1 and launches["triplane_splat"]
+          == 4 * steps1 + 2 * steps2 and launches["triplane_gather"]
+          >= 4 * steps1 + 2 * steps2,
+          f"run_pti on the photo: {len(results)} results, launches "
+          f"{launches}")
+    del G, params
+    return {"launches": launches, "run_pti_s": wall, "save_s": save_s,
+            "align_data_s": align_cli_s, "cascade_ms": cascade_s * 1e3,
+            "align_ms": align_s * 1e3}
+
+
+def phase_photo_and_tf(torch, gs, G, params, card, tmp):
+    """Phase 16, a-c."""
+    t0 = time.perf_counter()
+    out = {"sg2_tf": phase_sg2_tf(torch, tmp, card),
+           "render_options": phase_render_options(torch, gs, G, params,
+                                                  card),
+           "photo": phase_photo_to_inversion(torch, gs, tmp, card)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 16 (photo, TF pickles, render options) in "
+        f"{out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def phase_forward_repeat(torch, G, params, st):
     """Which of stage 1's inputs and forwards repeat their bits when run
     twice: the target render, the w statistics of 5000 latents, and one
@@ -3775,6 +4427,7 @@ def main():
         outputs = phase_outputs(torch, gs, G, params, st, tmp)
         training = phase_training(torch, gs, tmp)
         metrics = phase_metrics(torch, gs, card, tmp)
+        photo = phase_photo_and_tf(torch, gs, G, params, card, tmp)
     gather_times = phase_times(torch, gs, G, params, bw)
     _, seen = phase_step_times(torch, gs, params, st)
     splat_times = phase_splat_times(torch, gs, seen, bw)
@@ -3846,7 +4499,14 @@ def main():
                                 for k, v in metrics["cli"].items()},
                              "is50k_renders": metrics["is_ppl"][
                                  "is_gathers"],
-                             "ppl2_wend": metrics["is_ppl"]["ppl_gathers"]},
+                             "ppl2_wend": metrics["is_ppl"]["ppl_gathers"],
+                             "render_options": photo["render_options"][
+                                 "launches"]["triplane_gather"],
+                             "render_options_step": photo[
+                                 "render_options"]["grad_launches"][
+                                 "triplane_gather"],
+                             "photo_run_pti": photo["photo"]["launches"][
+                                 "triplane_gather"]},
         "max_abs_err": gather_err,
         "sample_mixed_chunk_max_abs_err": outputs["sample_mixed"][
             "max_abs_err"],
@@ -3877,6 +4537,11 @@ def main():
                              "run_pti_outputs": outputs["run_pti"][
                                  "launches"]["triplane_splat"],
                              "train_gan": training["launches"][
+                                 "triplane_splat"],
+                             "render_options_step": photo[
+                                 "render_options"]["grad_launches"][
+                                 "triplane_splat"],
+                             "photo_run_pti": photo["photo"]["launches"][
                                  "triplane_splat"]},
         "max_abs_err": splat_err, "max_rel_err": splat_rel,
         **splat_times, "check_shape_c16": small_splat}, {
@@ -3929,7 +4594,8 @@ def main():
                       "density_points": training["density"],
                       "tiny_step_card_vs_cpu": training["tiny"],
                       "phase_s": training["seconds"]},
-        "metrics": metrics}),
+        "metrics": metrics,
+        "photo_tf_options": photo}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -175,8 +175,14 @@ def test_refuses_reduced_precision(pair):
     assert planes.dtype == torch.float32
     torch.testing.assert_close(planes.reshape(img.shape), img, rtol=0,
                                atol=0)
-    with pytest.raises(ValueError):
-        GeneratorConfig(fused_dtype="float16")
+    # float16 mixed precision builds, as in tgi; other dtypes are refused.
+    half = GeneratorConfig(fused_dtype="float16")
+    assert half.backbone_cfg.fused_dtype == "float16"
+    assert block_dtype(half.fused_dtype, True) == torch.float16
+    for field, dtype in (("fused_dtype", "float64"),
+                         ("plane_dtype", "float16")):
+        with pytest.raises(ValueError):
+            GeneratorConfig(**{field: dtype})
 
 
 def test_gen_samples_cli_help(capsys):

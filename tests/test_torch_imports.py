@@ -119,3 +119,14 @@ def test_scan_covers_the_metric_modules():
             "tgi_torch.metrics.inception", "tgi_torch.metrics.equivariance",
             "tgi_torch.apps.calc_metrics", "tgi_torch.ops.filtered_lrelu",
             "tgi_torch.nn.synthesis3"} <= set(_modules())
+
+
+def test_scan_covers_the_photo_and_tf_modules():
+    """The scans above reach every module of the raw-photo and TF-pickle
+    slice (landmarks, alignment, dataset_tool, the 2D StyleGAN2 and the
+    TF converter)."""
+    assert {"tgi_torch.utils.landmarks", "tgi_torch.utils.alignment",
+            "tgi_torch.utils.summary", "tgi_torch.apps.align_data",
+            "tgi_torch.apps.dataset_tool", "tgi_torch.models.stylegan2",
+            "tgi_torch.io.legacy_tf", "tgi_torch.apps.legacy_convert"
+            } <= set(_modules())

@@ -194,7 +194,18 @@ def _tf_tuple():
 
 
 def test_tf_tuple_and_non_dict_payloads_raise():
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """A TF-era tuple now converts through io/legacy_tf.py
+    (``tests/test_torch_legacy_tf.py`` holds it against tgi); one of bare
+    Network stubs (no version, no variables) is refused, and so is a
+    payload that is neither a dict nor such a tuple."""
+    blob = chip_smoke.tf_network_pickle(
+        dict(latent_size=8, dlatent_size=8, resolution=8, fmap_base=16,
+             fmap_max=8, mapping_layers=1),
+        dict(resolution=8, fmap_base=16, fmap_max=8), seed=0)
+    data = pi.load_network_pkl(blob)
+    assert {data[k].kind for k in ("G", "D", "G_ema")} == {
+        "generator", "discriminator"}
+    with pytest.raises(ValueError, match="version too low"):
         pi.load_network_pkl(_tf_tuple())
     with pytest.raises(ValueError, match="unrecognized"):
         pi.load_network_pkl(pickle.dumps([1, 2]))

@@ -277,15 +277,18 @@ class ReferenceUnpickler(pickle.Unpickler):
         return _make_stub(module, name)
 
 
-def load_network_pkl(path_or_bytes) -> dict:
+def load_network_pkl(path_or_bytes, device="cpu") -> dict:
     """Load a reference pickle; returns the raw dict with CapturedModule
     values for G/D/G_ema (plus any plain entries).
 
     Modern pickles (force-fp16 variants included) load as CapturedModule
     trees. TF-era pickles (a (G, D, Gs) tuple of tflib Networks,
-    legacy.py:28-33) hold 2D StyleGAN2 networks, which ``tgi`` converts
-    with ``tgi/io/legacy_tf.py``; the port has no twin of that yet, so
-    they raise.
+    legacy.py:28-33) predate the tri-plane generator: their networks are
+    converted into the standalone 2D StyleGAN2 family by
+    ``io/legacy_tf.py`` (the reference's convert_tf_generator /
+    _discriminator mapping), and the dict's entries come back as
+    ConvertedSG2 (config + params on ``device``), ready for
+    ``tgi_torch.models.stylegan2``.
     """
     if isinstance(path_or_bytes, (bytes, bytearray)):
         data = ReferenceUnpickler(io.BytesIO(path_or_bytes)).load()
@@ -294,9 +297,9 @@ def load_network_pkl(path_or_bytes) -> dict:
             data = ReferenceUnpickler(f).load()
     if isinstance(data, tuple) and len(data) == 3 and \
             all(isinstance(net, _TFNetworkStub) for net in data):
-        raise NotImplementedError(
-            "TF-era (G, D, Gs) pickles convert through io/legacy_tf.py, "
-            "which is not ported yet (ROADMAP Queue A item 16)")
+        from tgi_torch.io.legacy_tf import convert_tf_network_tuple
+
+        return convert_tf_network_tuple(data, device)
     if not isinstance(data, dict):
         raise ValueError(
             f"unrecognized network pickle payload: {type(data).__name__} "
@@ -447,11 +450,18 @@ def load_generator(path, key: str = "G_ema", force_fp16: bool = False,
     here as in ``tgi``, so the rewrite is ``fused_dtype='bfloat16'`` +
     ``sr_num_fp16_res=4``, with no parameter copy.
     """
+    from tgi_torch.io.legacy_tf import ConvertedSG2
     from tgi_torch.io.validate import expected_spec, validate_tree
     from tgi_torch.models.generator import TriPlaneGenerator
 
     device = device or default_device()
     cap = load_network_pkl(path)[key]
+    if isinstance(cap, ConvertedSG2):
+        raise ValueError(
+            "this pickle holds a TF-era 2D StyleGAN2 (no tri-plane "
+            "decoder) — it converts to the tgi_torch.models.stylegan2 "
+            "family, not TriPlaneGenerator; use load_network_pkl() and "
+            "sg2_generator_apply, or tgi_torch.apps.legacy_convert")
     cfg = generator_config_from_captured(cap)
     if force_fp16:
         cfg = dataclasses.replace(cfg, fused_dtype="bfloat16",

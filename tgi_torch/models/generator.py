@@ -9,8 +9,9 @@ Precision as in ``tgi``: ``fused_dtype="bfloat16"`` runs the backbone's
 high-resolution blocks and (with ``sr_num_fp16_res > 0``) the SR in bf16,
 while parameters, styles, the planes the backbone returns and every
 image stay float32; ``force_fp32`` turns it off for one call (stage 1's
-renders). ``plane_dtype="bfloat16"`` rounds the planes to bf16 before the
-render; the sampler still reads them in float32.
+renders). ``fused_dtype="float16"`` does the same in float16, which
+``tgi`` also accepts. ``plane_dtype="bfloat16"`` rounds the planes to bf16
+before the render; the sampler still reads them in float32.
 """
 
 from __future__ import annotations
@@ -22,14 +23,20 @@ import torch
 
 from tgi_torch.nn.mapping import mapping_network_apply, mapping_network_init
 from tgi_torch.nn.superres import (SRConfig, sr_config_from_class_name,
-                                   superresolution_apply, superresolution_init)
+                                   sr_random_noise, superresolution_apply,
+                                   superresolution_init)
 from tgi_torch.nn.synthesis import (SynthesisConfig, block_dtype,
                                     synthesis_network_apply,
                                     synthesis_network_init)
 from tgi_torch.render.decoder import osg_decoder_init
 from tgi_torch.render.rays import ray_sampler
 from tgi_torch.render.renderer import importance_render, run_model
+from tgi_torch.utils.draws import TorchDraws
 from tgi_torch.utils.shapes import assert_shape
+
+# The activations' dtypes of the mixed-precision blocks, and the planes'.
+FUSED_DTYPES = ("float32", "bfloat16", "float16")
+PLANE_DTYPES = ("float32", "bfloat16")
 
 
 def default_rendering_kwargs(**overrides) -> dict:
@@ -78,15 +85,16 @@ class GeneratorConfig:
     mapping_layers: int = 8
     channel_base: int = 32768
     channel_max: int = 512
-    fused_dtype: str = "float32"  # 'bfloat16' for mixed precision
+    fused_dtype: str = "float32"  # 'bfloat16' / 'float16': mixed precision
     plane_dtype: str = "float32"  # the dtype the tri-planes are sampled in
     rendering_kwargs: Any = field(default_factory=default_rendering_kwargs)
 
     def __post_init__(self):
-        for name in ("fused_dtype", "plane_dtype"):
-            if getattr(self, name) not in ("float32", "bfloat16"):
+        for name, allowed in (("fused_dtype", FUSED_DTYPES),
+                              ("plane_dtype", PLANE_DTYPES)):
+            if getattr(self, name) not in allowed:
                 raise ValueError(f"{name}={getattr(self, name)!r}: expected "
-                                 f"'float32' or 'bfloat16'")
+                                 f"one of {allowed}")
 
     @property
     def backbone_cfg(self) -> SynthesisConfig:
@@ -172,18 +180,21 @@ class TriPlaneGenerator:
     def synthesis(self, params, ws, c, *, neural_rendering_resolution=None,
                   noise_mode="const", det=True, generator=None, planes=None,
                   sr_max_res=None, jitter=None, u=None, noise=None,
-                  force_fp32=False):
+                  sigma_noise=None, sr_noise=None, force_fp32=False):
         """Full render: ws [N, num_ws, 512], c [N, 25] ->
         {'image', 'image_raw', 'image_depth', 'planes'} (triplane.py:53-90).
 
         ``planes`` skips the backbone (the reference's cache_backbone /
         use_cached_backbone contract). ``generator`` drives the render's
-        random draws when ``det`` is False, and the backbone's noise
-        under ``noise_mode="random"`` (``tgi``'s trainer); ``jitter``,
-        ``u`` (see ``importance_render``) and ``noise`` (see
-        ``synthesis_network_apply``) give them as tensors instead. The
-        super-resolution's noise stays the rendering kwargs'
-        ``superresolution_noise_mode``.
+        random draws when ``det`` is False, the backbone's noise under
+        ``noise_mode="random"`` (``tgi``'s trainer), the density noise
+        and the SR's noise; ``jitter``, ``u``, ``sigma_noise`` (see
+        ``importance_render``), ``noise`` (see
+        ``synthesis_network_apply``) and ``sr_noise`` (see
+        ``nn/superres.py::sr_random_noise``) give them as tensors
+        instead. The SR's noise mode is the rendering kwargs'
+        ``superresolution_noise_mode``; under "random" its noise is
+        ``sr_noise``, else drawn from ``generator``.
         ``sr_max_res`` truncates the SR pyramid (see
         superresolution_apply). ``force_fp32`` renders in float32 whatever
         ``fused_dtype`` says (``plane_dtype`` still applies, as in
@@ -207,21 +218,25 @@ class TriPlaneGenerator:
         feature_samples, depth_samples, _ = importance_render(
             planes.to(getattr(torch, cfg.plane_dtype)), params["decoder"],
             ray_origins, ray_dirs, rk, det=det, generator=generator,
-            jitter=jitter, u=u)
+            jitter=jitter, u=u, sigma_noise=sigma_noise)
 
         feature_image = feature_samples.permute(0, 2, 1).reshape(
             N, feature_samples.shape[-1], res, res)
         depth_image = depth_samples.permute(0, 2, 1).reshape(N, 1, res, res)
         rgb_image = feature_image[:, :3]
         sr_fp16 = cfg.sr_num_fp16_res > 0 and cfg.fused_dtype != "float32"
+        sr_noise_mode = rk.get("superresolution_noise_mode", "none")
+        if (sr_noise_mode == "random" and sr_noise is None
+                and generator is not None):
+            sr_noise = sr_random_noise(cfg.sr_cfg, N,
+                                       TorchDraws(generator, c.device))
         sr_image = superresolution_apply(
             params["superresolution"], rgb_image, feature_image, ws,
             cfg.sr_cfg,
             dtype=block_dtype(cfg.fused_dtype, sr_fp16, force_fp32),
             conv_clamp=(256 if sr_fp16 else None),
             sr_antialias=rk.get("sr_antialias", True),
-            noise_mode=rk.get("superresolution_noise_mode", "none"),
-            max_res=sr_max_res)
+            noise_mode=sr_noise_mode, noise=sr_noise, max_res=sr_max_res)
         return {"image": sr_image, "image_raw": rgb_image,
                 "image_depth": depth_image, "planes": planes}
 

@@ -5,6 +5,11 @@ Each variant is two synthesis blocks conditioned on the last w repeated
 three times, after a bilinear resize of the raw render to the first
 block's input resolution. At full width (128² render into
 ``SuperresolutionHybrid8XDC``) no resize happens.
+
+Under ``superresolution_noise_mode="random"`` each layer adds a fresh
+``[N, 1, res, res]`` standard normal (times its ``noise_strength``),
+given as a ``noise`` dict keyed like the params; :func:`sr_random_noise`
+draws one in ``tgi``'s key order.
 """
 
 from __future__ import annotations
@@ -62,6 +67,22 @@ def superresolution_init(generator, cfg: SRConfig, w_dim: int = 512,
     }
 
 
+def sr_random_noise(cfg: SRConfig, N, draws):
+    """Per-layer noise ``{"block0": {"conv0": [N, 1, r0, r0], "conv1":
+    ...}, "block1": {...}}`` from a draw source
+    (``tgi_torch.utils.draws``), split as ``tgi`` splits the SR's key:
+    one child per block, two per block's layers
+    (``tgi/nn/superres.py:106-124``, ``tgi/nn/synthesis.py:196``)."""
+    noise = {}
+    for name, bk, (_, _, res, _) in zip(("block0", "block1"),
+                                        draws.split(2),
+                                        (cfg.block0, cfg.block1)):
+        k0, k1 = bk.split(2)
+        noise[name] = {"conv0": k0.normal((N, 1, res, res)),
+                       "conv1": k1.normal((N, 1, res, res))}
+    return noise
+
+
 def bilinear_resize(x, size, antialias=False):
     """Half-pixel-centre bilinear resize (``align_corners=False``), as
     ``jax.image.resize(method="linear")``. The two agree when upscaling;
@@ -73,7 +94,7 @@ def bilinear_resize(x, size, antialias=False):
 def superresolution_apply(params, rgb, x, ws, cfg: SRConfig, *,
                           dtype=torch.float32, conv_clamp=None,
                           sr_antialias=True, noise_mode="none",
-                          max_res=None):
+                          noise=None, max_res=None):
     """rgb: [N,3,r,r] raw render; x: [N,32,r,r] features; ws: [N,num_ws,512].
 
     Returns the SR image [N, 3, img_resolution, img_resolution] (float32),
@@ -81,6 +102,8 @@ def superresolution_apply(params, rgb, x, ws, cfg: SRConfig, *,
     resolution reaches it. Both blocks run their activations in ``dtype``
     and clamp at ``conv_clamp``; ``tgi`` clamps at 256 wherever its SR is
     set to reduced precision, also when a call forces float32.
+    ``noise``: the layers' draws under ``noise_mode="random"`` (see
+    :func:`sr_random_noise`).
     """
     ws = ws[:, -1:, :].repeat(1, 3, 1)
     if x.shape[-1] != cfg.input_resolution:
@@ -91,12 +114,15 @@ def superresolution_apply(params, rgb, x, ws, cfg: SRConfig, *,
     in1, _, res1, up1 = cfg.block1
     if max_res is not None and cfg.input_resolution >= max_res:
         return rgb
+    noise = noise or {}
     block_kw = dict(conv_clamp=conv_clamp, noise_mode=noise_mode,
                     dtype=dtype)
     x, rgb = synthesis_block_apply(params["block0"], x, rgb, ws,
-                                   in_channels=in0, up=up0, **block_kw)
+                                   in_channels=in0, up=up0,
+                                   noise=noise.get("block0"), **block_kw)
     if max_res is not None and res0 >= max_res:
         return rgb
     x, rgb = synthesis_block_apply(params["block1"], x, rgb, ws,
-                                   in_channels=in1, up=up1, **block_kw)
+                                   in_channels=in1, up=up1,
+                                   noise=noise.get("block1"), **block_kw)
     return rgb

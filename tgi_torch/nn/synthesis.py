@@ -7,11 +7,11 @@ Behavioral parity targets (networks_stylegan2.py):
   SynthesisBlock    :369-470
   SynthesisNetwork  :474-524
 
-Mixed precision as in ``tgi``: with ``fused_dtype="bfloat16"`` the
-blocks at ``fp16_resolution`` and above run their activations in bf16
-(the reference's fp16 blocks), with the weight and style
-pre-normalization and ``conv_clamp``; parameters, styles and the
-accumulated image stay float32. Noise modes: ``"const"`` (the stored
+Mixed precision as in ``tgi``: with ``fused_dtype="bfloat16"`` (or
+``"float16"``) the blocks at ``fp16_resolution`` and above run their
+activations in that dtype (the reference's fp16 blocks), with the weight
+and style pre-normalization and ``conv_clamp``; parameters, styles and
+the accumulated image stay float32. Noise modes: ``"const"`` (the stored
 ``noise_const`` buffers), ``"none"``, and ``"random"``: a fresh
 ``[N, 1, res, res]`` standard normal per layer, times the layer's
 ``noise_strength``, drawn from a ``torch.Generator`` or given as a

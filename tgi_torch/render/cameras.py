@@ -3,8 +3,9 @@ the pose estimator (twin of ``tgi/render/cameras.py``; parity target
 utils/camera_utils.py).
 
 Computed in float32 on ``device``, as the JAX package does. The random
-pose samplers (``gaussian_camera_pose``, ``uniform_camera_pose``) are on
-no inversion path and are not ported yet.
+pose samplers (``gaussian_camera_pose``, ``uniform_camera_pose``) draw
+from a ``torch.Generator`` or a draw source (``utils/draws.py``) split as
+``tgi`` splits its key, so a test can hand them ``tgi``'s draws.
 """
 
 from __future__ import annotations
@@ -14,6 +15,20 @@ import math
 import torch
 
 from tgi_torch.render.maths import normalize_vecs
+from tgi_torch.utils.draws import as_draws
+
+
+def _cam_origin(h_mean, v_mean, radius, h=None, v=None, device="cuda"):
+    """Spherical camera location; (h, v) optional offsets from the means
+    (tensors, whose device wins over ``device``)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    theta = torch.as_tensor(h_mean if h is None else h, **f32)
+    phi = torch.as_tensor(v_mean if v is None else v, **f32)
+    phi = torch.clamp(phi, 1e-5, math.pi - 1e-5)
+    x = radius * torch.sin(phi) * torch.cos(math.pi - theta)
+    z = radius * torch.sin(phi) * torch.sin(math.pi - theta)
+    y = radius * torch.cos(phi)
+    return torch.stack([x, y, z], dim=-1)
 
 
 def create_cam2world_matrix(forward_vector, origin):
@@ -44,15 +59,37 @@ def look_at_pose(h, v, lookat_position, radius=1.0, device="cuda"):
     h, v: float or [N] camera yaw/pitch (radians, v in [0, pi]).
     lookat_position: [..., 3]. Returns [..., 4, 4] cam2world.
     """
-    f32 = dict(dtype=torch.float32, device=device)
-    theta = torch.as_tensor(h, **f32)
-    phi = torch.clamp(torch.as_tensor(v, **f32), 1e-5, math.pi - 1e-5)
-    x = radius * torch.sin(phi) * torch.cos(math.pi - theta)
-    z = radius * torch.sin(phi) * torch.sin(math.pi - theta)
-    y = radius * torch.cos(phi)
-    origin = torch.stack([x, y, z], dim=-1)
-    forward = normalize_vecs(torch.as_tensor(lookat_position, **f32) - origin)
+    origin = _cam_origin(h, v, radius, device=device)
+    forward = normalize_vecs(torch.as_tensor(
+        lookat_position, dtype=torch.float32, device=device) - origin)
     return create_cam2world_matrix(forward, origin)
+
+
+def gaussian_camera_pose(rng, h_mean, v_mean, h_stddev=0., v_stddev=0.,
+                         radius=1.0, batch_size=1, device="cuda"):
+    """GaussianCameraPoseSampler.sample (camera_utils.py:23-55):
+    [batch_size, 4, 4] cam2world looking at the origin, yaw and pitch
+    normal about their means. ``rng``: a ``torch.Generator`` (its draws
+    placed on ``device``) or a draw source."""
+    kh, kv = as_draws(rng, device).split(2)
+    h = kh.normal((batch_size, 1)) * h_stddev + h_mean
+    v = kv.normal((batch_size, 1)) * v_stddev + v_mean
+    origin = _cam_origin(None, None, radius, h=h[:, 0], v=v[:, 0],
+                         device=device)
+    return create_cam2world_matrix(normalize_vecs(-origin), origin)
+
+
+def uniform_camera_pose(rng, h_mean, v_mean, h_stddev=0., v_stddev=0.,
+                        radius=1.0, batch_size=1, device="cuda"):
+    """UniformCameraPoseSampler.sample (camera_utils.py:107-134): yaw and
+    pitch uniform in ``mean ± stddev``; ``rng`` as for
+    :func:`gaussian_camera_pose`."""
+    kh, kv = as_draws(rng, device).split(2)
+    h = (kh.uniform((batch_size, 1)) * 2 - 1) * h_stddev + h_mean
+    v = (kv.uniform((batch_size, 1)) * 2 - 1) * v_stddev + v_mean
+    origin = _cam_origin(None, None, radius, h=h[:, 0], v=v[:, 0],
+                         device=device)
+    return create_cam2world_matrix(normalize_vecs(-origin), origin)
 
 
 def fov_to_intrinsics(fov_degrees, device="cuda"):

@@ -156,3 +156,20 @@ def merged_march(depths1, colors1, densities1, depths2, colors2, densities2,
     if white_back:
         composite_rgb = composite_rgb + 1 - weights.sum(dim=2)
     return composite_rgb * 2 - 1, depth, weights
+
+
+def unify_samples(depths1, colors1, densities1, depths2, colors2, densities2):
+    """Concat coarse+fine and sort by depth along the sample axis
+    (renderer.py:212-222; ``tgi/render/importance.py:173``). The
+    reference's formulation, on no path of the port: the renderer uses
+    :func:`merged_march`. The sort is stable, as ``jnp.argsort`` is."""
+    all_depths = torch.cat([depths1, depths2], dim=-2)
+    all_colors = torch.cat([colors1, colors2], dim=-2)
+    all_densities = torch.cat([densities1, densities2], dim=-2)
+
+    order = torch.argsort(all_depths, dim=-2, stable=True)
+    all_depths = torch.gather(all_depths, -2, order)
+    all_colors = torch.gather(
+        all_colors, -2, order.expand(*order.shape[:-1], all_colors.shape[-1]))
+    all_densities = torch.gather(all_densities, -2, order)
+    return all_depths, all_colors, all_densities

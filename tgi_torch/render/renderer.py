@@ -3,6 +3,12 @@
 
 The ray-axis sharding constraint of ``tgi`` has no counterpart here; a
 render runs on one device.
+
+``density_noise > 0`` (a rendering kwarg) adds ``normal * density_noise``
+to sigma after the decoder, as ``tgi`` does. ``tgi`` draws both passes'
+normals from one key (``tgi/render/renderer.py:105``, :123), so where the
+coarse and the fine pass have the same shape they get the same noise; the
+port keeps that reuse. The reference draws afresh for each pass.
 """
 
 from __future__ import annotations
@@ -15,27 +21,49 @@ from tgi_torch.render.importance import (merged_march, sample_importance,
                                          sample_stratified)
 from tgi_torch.render.march import mip_ray_marcher
 from tgi_torch.render.maths import get_ray_limits_box
+from tgi_torch.utils.draws import as_draws
 
 
-def run_model(planes, decoder_params, sample_coordinates, options):
+def run_model(planes, decoder_params, sample_coordinates, options,
+              sigma_noise=None):
     """Tri-plane sample + decoder MLP at arbitrary 3D points.
 
     planes: [N, 3, C, H, W]; sample_coordinates: [N, M, 3].
+    sigma_noise: the [N, M, 1] standard normal draw that ``density_noise
+    > 0`` scales (required then, as ``tgi`` requires its key).
     Returns {'rgb': [N, M, 32], 'sigma': [N, M, 1]}.
     """
-    if options.get("density_noise", 0) > 0:
-        raise NotImplementedError("density_noise > 0 is not ported yet")
     feats = sample_triplanes(planes, sample_coordinates,
                              box_warp=options["box_warp"])
     # Features come back in the planes' dtype (bf16 under
     # plane_dtype="bfloat16"); the decoder MLP always runs in float32.
-    return osg_decoder_apply(decoder_params, feats.float(),
-                             lr_multiplier=options.get("decoder_lr_mul", 1.0))
+    out = osg_decoder_apply(decoder_params, feats.float(),
+                            lr_multiplier=options.get("decoder_lr_mul", 1.0))
+    if options.get("density_noise", 0) > 0:
+        if sigma_noise is None:
+            raise ValueError("density_noise > 0 needs the standard normal "
+                             "draw (sigma_noise=)")
+        out["sigma"] = out["sigma"] + sigma_noise * options["density_noise"]
+    return out
+
+
+def density_noise_draws(coarse_shape, fine_shape, rng=None, device="cuda"):
+    """The standard normals of the coarse and the fine pass under
+    ``density_noise > 0``, from ``rng``: a draw source or a
+    ``torch.Generator`` (``utils/draws.py::as_draws``; a generator of
+    seed 0 on ``device`` when None, as ``tgi`` takes ``PRNGKey(0)`` for
+    a render without a key). Passes of one shape share one draw."""
+    if rng is None:
+        rng = torch.Generator(device=device).manual_seed(0)
+    d = as_draws(rng, device)
+    coarse = d.normal(coarse_shape)
+    return coarse, (coarse if tuple(fine_shape) == tuple(coarse_shape)
+                    else d.normal(fine_shape))
 
 
 def importance_render(planes, decoder_params, ray_origins, ray_directions,
                       options, *, det=False, generator=None, jitter=None,
-                      u=None):
+                      u=None, sigma_noise=None):
     """Full hierarchical render.
 
     Args:
@@ -48,6 +76,9 @@ def importance_render(planes, decoder_params, ray_origins, ray_directions,
         generator: torch.Generator for the stochastic draws.
         jitter: optional [N, M, D, 1] stratified jitter in [0, 1).
         u: optional [N*M, D_importance] importance uniforms in [0, 1).
+        sigma_noise: under ``density_noise > 0``, the coarse and the fine
+            pass's standard normals added to sigma; drawn from
+            ``generator`` by :func:`density_noise_draws` when None.
 
     Returns:
         (rgb_features [N, M, 32], depth [N, M, 1], weight_sum [N, M, 1]).
@@ -71,6 +102,13 @@ def importance_render(planes, decoder_params, ray_origins, ray_directions,
         ray_start, ray_end = options["ray_start"], options["ray_end"]
 
     S = options["depth_resolution"]
+    N_importance = options["depth_resolution_importance"]
+    noise_coarse = noise_fine = None
+    if options.get("density_noise", 0) > 0:
+        noise_coarse, noise_fine = (
+            sigma_noise if sigma_noise is not None else density_noise_draws(
+                (N, M * S, 1), (N, M * N_importance, 1), generator,
+                ray_origins.device))
     depths_coarse = sample_stratified(
         ray_origins, ray_start, ray_end, S,
         options.get("disparity_space_sampling", False), det=det,
@@ -78,13 +116,13 @@ def importance_render(planes, decoder_params, ray_origins, ray_directions,
 
     coords = (ray_origins[:, :, None, :]
               + depths_coarse * ray_directions[:, :, None, :]).reshape(N, -1, 3)
-    out = run_model(planes, decoder_params, coords, options)
+    out = run_model(planes, decoder_params, coords, options,
+                    sigma_noise=noise_coarse)
     colors_coarse = out["rgb"].reshape(N, M, S, -1)
     densities_coarse = out["sigma"].reshape(N, M, S, 1)
 
     march_kw = dict(clamp_mode=options["clamp_mode"],
                     white_back=options.get("white_back", False))
-    N_importance = options["depth_resolution_importance"]
     if N_importance > 0:
         _, _, weights = mip_ray_marcher(colors_coarse, densities_coarse,
                                         depths_coarse, **march_kw)
@@ -93,7 +131,8 @@ def importance_render(planes, decoder_params, ray_origins, ray_directions,
         coords = (ray_origins[:, :, None, :]
                   + depths_fine * ray_directions[:, :, None, :]
                   ).reshape(N, -1, 3)
-        out = run_model(planes, decoder_params, coords, options)
+        out = run_model(planes, decoder_params, coords, options,
+                        sigma_noise=noise_fine)
         colors_fine = out["rgb"].reshape(N, M, N_importance, -1)
         densities_fine = out["sigma"].reshape(N, M, N_importance, 1)
         rgb_final, depth_final, weights = merged_march(

@@ -51,10 +51,12 @@ class ImageFolderDataset:
         self._labels = None
         if use_labels:
             raw = self._read("dataset.json")
-            if raw is not None:
+            labels = json.loads(raw)["labels"] if raw is not None else None
+            # dataset_tool writes {"labels": null} for an unlabelled set.
+            if labels is not None:
                 table = {fname.replace("\\", "/"): np.asarray(label,
                                                               np.float32)
-                         for fname, label in json.loads(raw)["labels"]}
+                         for fname, label in labels}
                 self._labels = [table.get(n.replace("\\", "/"))
                                 for n in self._names]
 

@@ -35,8 +35,10 @@ from tgi_torch.nn.discriminator import (DiscriminatorConfig,
                                         discriminator_init,
                                         dual_discriminator_apply,
                                         filtered_resizing)
+from tgi_torch.nn.superres import sr_random_noise
 from tgi_torch.nn.synthesis import random_noise
 from tgi_torch.ops.upfirdn2d import filter2d
+from tgi_torch.render.renderer import density_noise_draws
 from tgi_torch.utils.draws import as_draws
 
 
@@ -179,16 +181,24 @@ class GANTrainer:
             ws = torch.where(mixed, ws2, ws)
         # The synthesis key's splits (tgi/models/generator.py:185) and the
         # renderer's (tgi/render/renderer.py:70).
-        k_bb, k_r, _ = k_render.split(3)
-        k_strat, k_imp, _ = k_r.split(3)
+        k_bb, k_r, k_sr = k_render.split(3)
+        k_strat, k_imp, k_noise = k_r.split(3)
         rk = self.G.cfg.rendering_kwargs
         M = neural_res * neural_res
+        S, Si = rk["depth_resolution"], rk["depth_resolution_importance"]
+        sigma_noise = sr_noise = None
+        if rk.get("density_noise", 0) > 0:
+            sigma_noise = density_noise_draws((N, M * S, 1), (N, M * Si, 1),
+                                              k_noise)
+        if rk.get("superresolution_noise_mode") == "random":
+            sr_noise = sr_random_noise(self.G.cfg.sr_cfg, N, k_sr)
         out = self.G.synthesis(
             g_params, ws, c, neural_rendering_resolution=neural_res,
             noise_mode="random", det=False,
             noise=random_noise(self.G.cfg.backbone_cfg, N, k_bb),
-            jitter=k_strat.uniform((N, M, rk["depth_resolution"], 1)),
-            u=k_imp.uniform((N * M, rk["depth_resolution_importance"])))
+            jitter=k_strat.uniform((N, M, S, 1)),
+            u=k_imp.uniform((N * M, Si)), sigma_noise=sigma_noise,
+            sr_noise=sr_noise)
         return out, ws
 
     def _run_D(self, d_params, img, img_raw, c, draws, blur_sigma, blur_size,
