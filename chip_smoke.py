@@ -109,7 +109,8 @@ included, with both bootstrap losses falling; e4e
 (IR-SE50, 256²) and ArcFace (112²) on the card against their CPU run;
 and ``run_pti`` with the e4e start and ``--eval`` from seeded ``.pt``
 files (20 + 10 steps), its metrics checked; the gather and splat
-launches of each part counted.
+launches of each part counted. The gate also runs batched at B = 4 on
+the same nets (phase 17f reads it).
 
 Phase 13 drives what ``run_pti`` writes at ``tgi``'s defaults, and
 GANSpace, on the seed-0 full-width generator: (a) ``sample_mixed`` on one
@@ -195,6 +196,31 @@ with ``save_shape_predictor``, ``align_data --predictor --size 512``,
 ``dataset_tool`` to a zip read back through ``ImageFolderDataset`` bit
 for bit, and ``run_pti`` on the aligned folder at 10 + 5 steps with its
 gathers and splats counted.
+
+Phase 17 drives batched inversion (``Projector.project_batch``,
+``PTICoach.tune_batch``, ``run_pti --batch``, the batched gate) on the
+gate's generator (seed 2) at B = 4, the targets at the batched gate's
+cameras (``selfinv._BATCH_POSE_OFFSETS``): (a) one batched stage-1 joint
+step (each image's calibrated pose ResNet-34, one render of the 4 images
+a view) and one batched tuning step (4 generator copies, every leaf per
+image) through the kernels, again, through the plain sampler and under
+``TGI_SPLAT=mxu``, per group within STAGE1_GRAD_TOL / GRAD_TOL with
+deterministic cuDNN and TF32 off; the gather, the fused splat and the
+sorted splat (up to 4 x 3 x 786,432 keys) against their plain versions
+on the inputs those steps handed them; (b) image b of each step against
+the one-image step on its inputs and draws (BATCH_LANE_TOL, the
+camera's groups BATCH_CAMERA_TOL); (c) the
+launches: one gather a render pass and one splat a backward pass at
+N = 4, as a one-image step; the gather and the fused splat per pass at
+N = 4 beside plain, F.grid_sample / grid_sampler_2d_backward and the
+bound; (d) ``run_pti(batch=4)`` over 5 images (a chunk of 4, a ragged
+one of 1) at 10 + 5 steps without videos: every image's pivots, tuned
+generator and results entry, passes at N = 4 and 1; (e) ms per image
+and peak memory of a stage-1 step and a tuning step at B = 1, 2, 4, with
+and without remat (CUDA events); (f) the batched gate phase 12 ran beside
+the single one (20 + 60 steps on the same bootstrapped nets): each
+image's final MSE at most 1.05 x its pivot's, image 0 within 0.01
+MS-SSIM of the single gate, and its launches.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1793,7 +1819,7 @@ def phase_selfinv_gate(torch, gs):
     zero_counts(gs)
     out = selfinv_gate.run_gate(G, params, device=DEVICE, stage1=GATE_STAGE1,
                                 stage2=GATE_STAGE2, preheat=GATE_PREHEAT,
-                                trace_every=GATE_TRACE, log=log,
+                                trace_every=GATE_TRACE, batch=BATCH, log=log,
                                 **GATE_BOOTSTRAP)
     rep, q, launched = out["bootstrap"], out["gate"], out["launches"]
     log(f"selfinv gate: bootstrap {out['seconds']['bootstrap']:.1f} s "
@@ -1835,7 +1861,8 @@ def phase_selfinv_gate(torch, gs):
                      + 2 * es_renders + 6,
                      "triplane_splat": 4 * s1 + 2 * s2 + 2 * es,
                      "triplane_splat_sorted": 0}}
-    check(launched == want, f"gate launches {launched}, expected {want}")
+    got = {k: launched[k] for k in want}
+    check(got == want, f"gate launches {got}, expected {want}")
     return out
 
 
@@ -4081,6 +4108,660 @@ def phase_splat_times(torch, gs, seen, bw):
             "bound_ms": mean[3], "bound_by": rows[0][4]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: batched inversion on the gate's full-width generator (seed 2)
+# at B = 4, the batched gate's cameras (selfinv._BATCH_POSE_OFFSETS).
+BATCH = 4
+BATCH_TIMING_SIZES = (1, 2, 4)
+BATCH_RUN_PTI_IMAGES = 5           # a chunk of 4 and a ragged one of 1
+BATCH_RUN_PTI_STEPS = (10, 5)      # run_pti's projection and tuning steps
+# Image b of a batched step against the one-image step on its inputs and
+# draws, with deterministic cuDNN and TF32 off: the loss within
+# BATCH_LANE_LOSS_TOL relative and each group's gradient ||Δ||_2 <=
+# BATCH_LANE_TOL * ||want||_2. The two differ in the convolutions' batch
+# (stage 1: N = 4 against 1, the pose nets grouped), in stage 2 the
+# modulated convs' form (the reference's fused grouped conv against the
+# unfused one) and in the splat's atomics; the kernels against the plain
+# sampler, which differ only in the splat's sums, are held to
+# STAGE1_GRAD_TOL and GRAD_TOL.
+BATCH_LANE_LOSS_TOL = 1e-5
+BATCH_LANE_TOL = 1e-3
+# The camera's gradient (pose net, translation) crosses discontinuities:
+# a fine sample's bin in the importance sampler, the warp's foreground
+# mask, a cell's floor in the warp's sampling. A rounding there moves it
+# further: on an H100 image 3 read 1.7e-2 on the pose net and 1.5e-2 on
+# the translation in one call and 3.5e-5 / 3.3e-5 in the next, same
+# seeds (PERF.md §6, PR 18). An image mixed with another, or a wrong
+# grouped conv, reads O(1). The log also gives how far the one-image
+# step moves when its latent moves by BATCH_LANE_MOVE of itself.
+BATCH_CAMERA_TOL = 5e-2
+BATCH_LANE_MOVE = 1e-6
+# The tuning step's groups of generator weights.
+TUNE_GROUPS = ("backbone", "superresolution", "decoder")
+
+
+def batch_targets(torch, G, params, n, seed=0):
+    """n targets of the batched gate's kind: image i from seed + 10 i's
+    latent at the i-th of ``_BATCH_POSE_OFFSETS`` (cycled). Returns
+    (images [n, 1, 3, 512, 512] in [-1, 1], their 256² [0, 255] versions
+    [n, 1, 3, 256, 256])."""
+    from tgi_torch.invert import selfinv
+    imgs, t255s = [], []
+    for i in range(n):
+        z = torch.randn((1, G.cfg.z_dim), generator=torch.Generator()
+                        .manual_seed(seed + 10 * i)).to(DEVICE)
+        with torch.no_grad():
+            ws = G.mapping(params, z, _camera(torch, 0.0),
+                           truncation_psi=0.7, truncation_cutoff=14)
+        yaw, pitch = selfinv._BATCH_POSE_OFFSETS[
+            i % len(selfinv._BATCH_POSE_OFFSETS)]
+        _, cam = selfinv.gate_camera(yaw, pitch, DEVICE)
+        img, t255 = selfinv.gate_target(G, params, ws, cam)
+        imgs.append(img)
+        t255s.append(t255)
+    return torch.stack(imgs), torch.stack(t255s)
+
+
+def batch_setup(torch, G, params):
+    """Stage 1 and stage 2 of B images at full width: each image's pose
+    ResNet-34 calibrated on its target, VGG16 and its LPIPS head, drawn
+    from seeds; a batched projector state with the inputs of one joint
+    step; a coach with AlexNet-LPIPS and the pivots the state gives.
+    Every draw from a seed."""
+    from tgi_torch.invert.coach import CoachConfig, PTICoach, render_draws
+    from tgi_torch.invert.projector import Projector, ProjectorConfig
+    from tgi_torch.losses.lpips import make_lpips
+    from tgi_torch.models.pose_resnet import (resnet34_calibrate,
+                                              resnet34_init, stack_nets)
+    from tgi_torch.models.vgg import (lpips_features, lpips_head_init,
+                                      vgg16_init)
+    imgs, t255 = batch_targets(torch, G, params, BATCH)
+    gen = torch.Generator().manual_seed(8)
+    pose0 = resnet34_init(gen, 4, DEVICE)
+    vgg, head = vgg16_init(gen, DEVICE), lpips_head_init(gen, DEVICE)
+    with torch.no_grad():
+        nets = [resnet34_calibrate(pose0, t255[b]) for b in range(BATCH)]
+        feats = lpips_features(vgg, head, t255[:, 0])
+    proj = Projector(G, params, vgg, head, nets[0],
+                     ProjectorConfig(num_steps=STAGE1_STEPS))
+    state, opts, w_std = proj.init_state_batch(
+        BATCH, generators=[torch.Generator(device=DEVICE).manual_seed(20 + b)
+                           for b in range(BATCH)],
+        pose_params_b=stack_nets(nets))
+    step = proj.cfg.cam_preheat_steps + 5
+    w_noise = torch.randn(state["w"].shape, generator=torch.Generator(
+        device=DEVICE).manual_seed(9), device=DEVICE) * (
+            w_std * proj.schedule(step)[0])
+    cpu = [torch.Generator().manual_seed(30 + b) for b in range(BATCH)]
+    views = [[render_draws(G, [g], DEVICE) for g in cpu] for _ in range(2)]
+    draws = tuple((torch.cat([d[0] for d in v]), torch.cat([d[1] for d in v]))
+                  for v in views)
+    lp = make_lpips("alex", generator=torch.Generator().manual_seed(5),
+                    device=DEVICE)
+    coach = PTICoach(G, lp, CoachConfig(lpips_threshold=0.0))
+    with torch.no_grad():
+        ws = state["w"].detach().reshape(BATCH, 1, -1).repeat(
+            1, G.cfg.num_ws, 1)
+        cams = proj.camera(state["pose"], state["translation"].reshape(
+            BATCH, 3), t255[:, 0])[1]
+    tune_draws = render_draws(G, [torch.Generator().manual_seed(40 + b)
+                                  for b in range(BATCH)], DEVICE)
+    return dict(proj=proj, state=state, opts=opts, w_std=w_std, t255=t255,
+                imgs=imgs, feats=feats, w_noise=w_noise, draws=draws,
+                step=step, nets=nets, vgg=vgg, head=head, pose0=pose0,
+                coach=coach, ws=ws, cams=cams, tune_draws=tune_draws)
+
+
+def _lane_draws(draws, b, M):
+    """Image b's (jitter, u) out of a batch's."""
+    jitter, u = draws
+    return jitter[b:b + 1], u[b * M:(b + 1) * M]
+
+
+class _recorder:
+    """Inside the block: the renderer's sampler (``sampler``, or the
+    package's), recording each pass's (planes, coords, box_warp), and the
+    splat wrappers recording their arguments; with ``keep=False`` only
+    each pass's N (``self.Ns``)."""
+
+    def __init__(self, gs, sampler=None, keep=True):
+        self.gs, self.sampler, self.keep = gs, sampler, keep
+        self.gathers, self.splats, self.sorted, self.Ns = [], [], [], []
+
+    def __enter__(self):
+        import tgi_torch.render.renderer as renderer
+        gs, sampler = self.gs, self.sampler or self.gs.sample_triplanes
+        self.real = (gs.triplane_splat_cuda, gs.triplane_splat_sorted_cuda)
+
+        def sample(planes, coords, box_warp):
+            self.Ns.append(planes.shape[0])
+            if self.keep:
+                self.gathers.append((planes, coords, box_warp))
+            return sampler(planes, coords, box_warp)
+
+        def splat(*args, **kw):
+            if self.keep:
+                self.splats.append((args, kw))
+            return self.real[0](*args, **kw)
+
+        def sorted_splat(*args):
+            if self.keep:
+                self.sorted.append(args)
+            return self.real[1](*args)
+
+        renderer.sample_triplanes = sample
+        gs.triplane_splat_cuda = splat
+        gs.triplane_splat_sorted_cuda = sorted_splat
+        return self
+
+    def __exit__(self, *exc):
+        import tgi_torch.render.renderer as renderer
+        renderer.sample_triplanes = self.gs.sample_triplanes
+        self.gs.triplane_splat_cuda, self.gs.triplane_splat_sorted_cuda = \
+            self.real
+
+
+def _stage1_batch_grads(torch, gs, bs, mode="pack", sampler=None):
+    """One batched stage-1 joint step's loss and gradients (the B images'
+    states), the launches and what the kernels were handed."""
+    named = dict(_named_leaves(bs["state"]))
+    for t in named.values():
+        t.grad = None
+    zero_counts(gs)
+    with splat_route(mode), _recorder(gs, sampler) as rec:
+        loss, aux = bs["proj"]._loss_batch(
+            bs["state"], bs["t255"][:, 0], bs["feats"], bs["w_noise"],
+            bs["draws"], targets_warp=bs["imgs"][:, 0])
+        loss.backward()
+    torch.cuda.synchronize()
+    return (loss.item(), aux, {k: t.grad.clone() for k, t in named.items()},
+            counts(gs), rec)
+
+
+def _tune_batch_grads(torch, gs, bs, params_b, mode="pack", sampler=None):
+    """One batched tuning step's per-image losses and gradients."""
+    named = dict(_named_leaves(params_b))
+    for t in named.values():
+        t.grad = None
+    zero_counts(gs)
+    jitter, u = bs["tune_draws"]
+    with splat_route(mode), _recorder(gs, sampler) as rec:
+        losses, _ = bs["coach"]._loss_batch(params_b, bs["ws"], bs["cams"],
+                                            bs["imgs"][:, 0], jitter, u)
+        losses.sum().backward()
+    torch.cuda.synchronize()
+    return (losses.detach(), {k: t.grad.clone() for k, t in named.items()
+                              if t.grad is not None}, counts(gs), rec)
+
+
+def _lane_err(torch, batched, single, b, group):
+    """Norm-wise error of image b's gradient of ``group`` in a batched
+    step against a one-image step's, and the one-image gradient's norm."""
+    got = torch.cat([t[b].flatten() for k, t in batched.items()
+                     if k.split(".")[0] == group])
+    want = _group_vec(torch, single, group)
+    return _norm_err(got, want), want.norm().item()
+
+
+def phase_batched_steps(torch, gs, G, params, bs):
+    """17a-c: one batched stage-1 joint step and one batched tuning step
+    at N = 4 through the kernels, again, through the plain sampler and
+    under TGI_SPLAT=mxu (deterministic cuDNN, TF32 off), per group within
+    STAGE1_GRAD_TOL and GRAD_TOL; image b of each against the one-image
+    step on its own inputs and draws (BATCH_LANE_TOL); the launches of
+    each step, one gather a render pass and one splat a backward pass at
+    N = 4; and the gather, the fused splat and the sorted splat held
+    against their plain versions on the inputs the batched steps handed
+    them. Returns the errors, the launches and those inputs."""
+    from tgi_torch.models.generator import stack_params, take_image
+    proj, state = bs["proj"], bs["state"]
+    M = G.cfg.neural_rendering_resolution ** 2
+    out = {"stage1": {}, "tuning": {}}
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss, _, kernel, n_kernel, rec = _stage1_batch_grads(torch, gs, bs)
+        _, _, again, _, _ = _stage1_batch_grads(torch, gs, bs)
+        loss_p, _, plain, n_plain, _ = _stage1_batch_grads(
+            torch, gs, bs, sampler=gs.sample_triplanes_plain)
+        loss_m, _, mxu, n_mxu, rec_m = _stage1_batch_grads(torch, gs, bs,
+                                                           "mxu")
+        Ns = {p.shape[0] for p, _, _ in rec.gathers} | {
+            a[0].shape[0] for a, _ in rec.splats}
+        check(Ns == {BATCH}, f"the batched step's passes ran at N = {Ns}")
+        check(n_kernel == {"triplane_gather": 4, "triplane_splat": 4,
+                           "triplane_splat_sorted": 0,
+                           "triplane_splat_keys": 0,
+                           "triplane_splat_offsets": 0}
+              and n_plain["triplane_gather"] == 0
+              and n_mxu == {"triplane_gather": 4, "triplane_splat": 2,
+                            "triplane_splat_sorted": 4,
+                            "triplane_splat_keys": 4,
+                            "triplane_splat_offsets": 4},
+              f"batched stage-1 step launches {n_kernel}, plain {n_plain}, "
+              f"mxu {n_mxu}: expected one gather a render pass and one "
+              f"splat a backward pass at N = {BATCH}, as a one-image step")
+        log(f"batched stage-1 step (N = {BATCH}): launches {n_kernel}, "
+            f"TGI_SPLAT=mxu {n_mxu}; loss kernels {loss:.6g}, plain "
+            f"{loss_p:.6g}, mxu {loss_m:.6g}")
+        for group in ("w", "noise", "pose", "translation"):
+            err, scale = _group_err(torch, kernel, plain, group)
+            err2, _ = _group_err(torch, again, kernel, group)
+            err_m, _ = _group_err(torch, mxu, kernel, group)
+            log(f"batched stage-1 gradient of {group}: norm {scale:.4g}; "
+                f"kernels vs plain {err:.3g}; kernels twice {err2:.3g}; "
+                f"mxu vs default {err_m:.3g}")
+            check(scale > 0 and err <= STAGE1_GRAD_TOL
+                  and err_m <= STAGE1_GRAD_TOL,
+                  f"batched stage 1, {group}: kernels vs plain {err}, mxu "
+                  f"{err_m} > {STAGE1_GRAD_TOL}")
+            out["stage1"][group] = {"kernels_vs_plain": err,
+                                    "twice": err2, "mxu_vs_default": err_m}
+        check(abs(loss - loss_p) <= 1e-5 * abs(loss_p),
+              f"batched stage-1 loss {loss} vs plain {loss_p}")
+
+        # b. each image against its one-image step.
+        with torch.no_grad():
+            _, aux = proj._loss_batch(state, bs["t255"][:, 0], bs["feats"],
+                                      bs["w_noise"], bs["draws"],
+                                      targets_warp=bs["imgs"][:, 0])
+        per_image = (aux["dist"] + aux["warp"] + aux["noise_reg"]
+                     * proj.cfg.regularize_noise_weight)
+        groups = ("w", "noise", "pose", "translation")
+
+        def one_image(b, move=0.0):
+            """Image b's one-image step; ``move``: its w moved by that
+            share of itself."""
+            w = state["w"][b].detach() * (1 + move)
+            one = {"w": w.clone().requires_grad_(True),
+                   "noise": {k: v[b].detach().clone().requires_grad_(True)
+                             for k, v in state["noise"].items()},
+                   "translation": state["translation"][b].detach().clone()
+                   .requires_grad_(True),
+                   "pose": _map_detach(take_image(state["pose"], b))}
+            for t in _leaves(one["pose"]):
+                t.requires_grad_(True)
+            l1, _ = proj._loss(one, bs["t255"][b], bs["feats"][b:b + 1],
+                               bs["w_noise"][b],
+                               draws=tuple(_lane_draws(d, b, M)
+                                           for d in bs["draws"]),
+                               target_warp=bs["imgs"][b])
+            l1.backward()
+            return l1.item(), {k: t.grad for k, t in _named_leaves(one)}
+
+        lane = {}
+        for b in range(BATCH):
+            l1, single = one_image(b)
+            _, moved = one_image(b, BATCH_LANE_MOVE)
+            lane[b] = {"loss_rel": abs(per_image[b].item() - l1) / abs(l1)}
+            for g in groups:
+                lane[b][g] = _lane_err(torch, kernel, single, b, g)[0]
+                lane[b][g + "_moved"] = _group_err(torch, moved, single,
+                                                   g)[0]
+        log(f"batched stage-1 step, image b vs its one-image step (and the "
+            f"one-image step with w moved by {BATCH_LANE_MOVE} of itself, "
+            f"'_moved'): {lane}")
+        tol = {g: BATCH_CAMERA_TOL if g in ("pose", "translation")
+               else BATCH_LANE_TOL for g in groups}
+        check(all(v["loss_rel"] <= BATCH_LANE_LOSS_TOL and all(
+            v[g] <= tol[g] for g in groups) for v in lane.values()),
+              f"a batched stage-1 image parts from its one-image step: "
+              f"{lane}")
+        out["stage1"]["image_vs_one_image"] = lane
+        out["stage1"]["launches"] = {"default": n_kernel, "mxu": n_mxu}
+
+        # The tuning step: B generator copies.
+        params_b = _map_detach(stack_params(params, BATCH))
+        for t in _leaves(params_b):
+            t.requires_grad_(True)
+        tl, tk, tn, trec = _tune_batch_grads(torch, gs, bs, params_b)
+        tl2, tk2, _, _ = _tune_batch_grads(torch, gs, bs, params_b)
+        tlp, tp, tnp, _ = _tune_batch_grads(
+            torch, gs, bs, params_b, sampler=gs.sample_triplanes_plain)
+        tlm, tm, tnm, trec_m = _tune_batch_grads(torch, gs, bs, params_b,
+                                                 "mxu")
+        check(tn == {"triplane_gather": 2, "triplane_splat": 2,
+                     "triplane_splat_sorted": 0, "triplane_splat_keys": 0,
+                     "triplane_splat_offsets": 0}
+              and tnp["triplane_gather"] == 0
+              and tnm["triplane_gather"] == 2
+              and tnm["triplane_splat_sorted"] == 2
+              and tnm["triplane_splat"] == 0,
+              f"batched tuning step launches {tn}, plain {tnp}, mxu {tnm}")
+        check({p.shape[0] for p, _, _ in trec.gathers} == {BATCH},
+              "the batched tuning step's passes did not run at N = 4")
+        log(f"batched tuning step (N = {BATCH}): launches {tn}, mxu {tnm}; "
+            f"losses kernels {tl.tolist()}, plain {tlp.tolist()}")
+        check(((tl - tlp).abs() <= 1e-5 * tlp.abs()).all().item(),
+              f"batched tuning losses {tl.tolist()} vs plain {tlp.tolist()}")
+        for group in TUNE_GROUPS:
+            err, scale = _group_err(torch, tk, tp, group)
+            err2, _ = _group_err(torch, tk2, tk, group)
+            err_m, _ = _group_err(torch, tm, tk, group)
+            log(f"batched tuning gradient of {group}: norm {scale:.4g}; "
+                f"kernels vs plain {err:.3g}; twice {err2:.3g}; mxu vs "
+                f"default {err_m:.3g}")
+            check(scale > 0 and err <= GRAD_TOL and err_m <= GRAD_TOL,
+                  f"batched tuning, {group}: kernels vs plain {err}, mxu "
+                  f"{err_m} > {GRAD_TOL}")
+            out["tuning"][group] = {"kernels_vs_plain": err, "twice": err2,
+                                    "mxu_vs_default": err_m}
+        def one_tune(b, move=0.0):
+            one = _map_detach(params)
+            for t in _leaves(one):
+                t.requires_grad_(True)
+            jitter, u = _lane_draws(bs["tune_draws"], b, M)
+            l1, _ = bs["coach"]._loss(one, bs["ws"][b:b + 1] * (1 + move),
+                                      bs["cams"][b:b + 1],
+                                      bs["imgs"][b], jitter=jitter, u=u)
+            l1.backward()
+            return l1.item(), {k: t.grad for k, t in _named_leaves(one)
+                               if t.grad is not None}
+
+        lane = {}
+        for b in range(BATCH):
+            l1, single = one_tune(b)
+            _, moved = one_tune(b, BATCH_LANE_MOVE)
+            lane[b] = {"loss_rel": abs(tl[b].item() - l1) / abs(l1)}
+            for g in TUNE_GROUPS:
+                lane[b][g] = _lane_err(torch, tk, single, b, g)[0]
+                lane[b][g + "_moved"] = _group_err(torch, moved, single,
+                                                   g)[0]
+        log(f"batched tuning step, image b vs its one-image step (and "
+            f"'_moved'): {lane}")
+        check(all(v["loss_rel"] <= BATCH_LANE_LOSS_TOL and all(
+            v[g] <= BATCH_LANE_TOL for g in TUNE_GROUPS)
+            for v in lane.values()),
+              f"a batched tuning image parts from its one-image step: "
+              f"{lane}")
+        out["tuning"]["image_vs_one_image"] = lane
+        out["tuning"]["launches"] = {"default": tn, "mxu": tnm}
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # The kernels against their plain versions on what the batched steps
+    # handed them: every gather pass, every splat (with and without
+    # d_coords), every sorted splat (N·3·M keys up to 4·3·786,432).
+    with torch.no_grad():
+        errs = _batched_kernels_vs_plain(torch, gs, rec, trec, rec_m,
+                                         trec_m)
+    out["kernels_vs_plain"] = errs
+    out["n4_inputs"] = {"gather": trec.gathers[-1],
+                        "splat": trec.splats[-1][0]}
+    return out
+
+
+def _batched_kernels_vs_plain(torch, gs, rec, trec, rec_m, trec_m):
+    gerr = serr = srel = oerr = orel = 0.0
+    for planes, coords, bw_ in rec.gathers + trec.gathers:
+        got = gs.sample_triplanes_cuda(planes, coords, bw_)
+        want = gs.sample_triplanes_plain(planes, coords, bw_)
+        gerr = max(gerr, (got - want).abs().max().item())
+    for args, kw in rec.splats + trec.splats:
+        got = gs.triplane_splat_cuda(*args, **kw)
+        want = gs.triplane_splat_plain(*args, **kw)
+        for a, w in zip(got, want):
+            if w is not None:
+                e = (a - w).abs().max().item()
+                scale = max(1.0, w.abs().max().item())
+                serr, srel = max(serr, e), max(srel, e / scale)
+    keys = 0
+    for args in rec_m.sorted + trec_m.sorted:
+        got = gs.triplane_splat_sorted_cuda(*args)
+        want = gs.triplane_splat_sorted_plain(*args)
+        e = (got - want).abs().max().item()
+        oerr = max(oerr, e)
+        orel = max(orel, e / max(1.0, want.abs().max().item()))
+        keys = max(keys, args[0].shape[0] * 3 * args[0].shape[1])
+    torch.cuda.synchronize()
+    log(f"kernels vs plain on the batched steps' inputs (N = {BATCH}): "
+        f"gather max abs err {gerr:.3g} over "
+        f"{len(rec.gathers) + len(trec.gathers)} passes; splat {serr:.3g} "
+        f"(relative {srel:.3g}) over {len(rec.splats) + len(trec.splats)}; "
+        f"sorted splat {oerr:.3g} (relative {orel:.3g}) over "
+        f"{len(rec_m.sorted) + len(trec_m.sorted)}, up to {keys} keys")
+    check(gerr <= KERNEL_TOL, f"gather at N = {BATCH}: {gerr} > {KERNEL_TOL}")
+    check(srel <= SPLAT_TOL and orel <= SPLAT_TOL,
+          f"splat at N = {BATCH}: {srel}, sorted {orel} > {SPLAT_TOL}")
+    check(keys == BATCH * 3 * 128 * 128 * 48,
+          f"the sorted splat saw at most {keys} keys")
+    return {"gather_max_abs_err": gerr, "splat_max_abs_err": serr,
+            "splat_max_rel_err": srel, "sorted_max_abs_err": oerr,
+            "sorted_max_rel_err": orel, "sorted_keys": keys}
+
+
+def phase_batched_kernel_times(torch, gs, inputs, bw):
+    """The gather and the fused splat per pass at N = 4 (the tuning
+    step's fine pass) beside their plain versions, F.grid_sample /
+    grid_sampler_2d_backward at N = 4 and the card's bound."""
+    import torch.nn.functional as F
+    planes, coords, bwarp = inputs["gather"]
+    N, _, C, H, W = planes.shape
+    M = coords.shape[1]
+    nchw = planes.contiguous().reshape(N * 3, C, H, W)
+    grid = gs.project_onto_planes((2.0 / bwarp) * coords).reshape(
+        N * 3, 1, M, 2)
+    nbytes = 4 * (N * 3 * C * H * W + N * M * 3 + N * 3 * M * C)
+    out = {}
+    for name, fn, plain, lib, flops in (
+            ("triplane_gather",
+             lambda: gs.sample_triplanes_cuda(planes, coords, bwarp),
+             lambda: gs.sample_triplanes_plain(planes, coords, bwarp),
+             lambda: F.grid_sample(nchw, grid, mode="bilinear",
+                                   padding_mode="zeros",
+                                   align_corners=False),
+             N * 3 * M * (C * 9 + 20)),
+            ("triplane_splat",) + _splat_fns(torch, gs, inputs["splat"])
+            + (N * 3 * M * (8 * C + 20),)):
+        t = cuda_ms(torch, fn, iters=10)
+        tp = cuda_ms(torch, plain, iters=3, warmup=1)
+        tl = cuda_ms(torch, lib, iters=10)
+        bound = max(nbytes / bw, flops / FP32_FLOPS) * 1e3
+        by = "bytes" if nbytes / bw >= flops / FP32_FLOPS else "operations"
+        log(f"times at N = {N}, {name}, fine pass (M = {M}): kernel {t:.4f}"
+            f" ms, plain {tp:.4f} ms, library {tl:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB at "
+            f"{bw / 1e12:.2f} TB/s); share of the bound "
+            f"{100 * bound / t:.1f} %, kernel / library {t / tl:.3f}")
+        out[name] = {"ms": t, "plain_ms": tp, "library_ms": tl,
+                     "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def _splat_fns(torch, gs, args):
+    """(kernel, plain, grid_sampler_2d_backward) on one splat's inputs,
+    without d_coords."""
+    planes_cl, coords, g, bwarp = args[:4]
+    N, _, H, W, C = planes_cl.shape
+    M = coords.shape[1]
+    nchw = planes_cl.permute(0, 1, 4, 2, 3).reshape(N * 3, C, H,
+                                                    W).contiguous()
+    grid = gs.project_onto_planes((2.0 / bwarp) * coords).reshape(
+        N * 3, 1, M, 2)
+    g_lib = g.reshape(N * 3, M, C).permute(0, 2, 1).reshape(
+        N * 3, C, 1, M).contiguous()
+    return (lambda: gs.triplane_splat_cuda(planes_cl, coords, g, bwarp,
+                                           False),
+            lambda: gs.triplane_splat_plain(planes_cl, coords, g, bwarp,
+                                            False),
+            lambda: torch.ops.aten.grid_sampler_2d_backward(
+                g_lib, nchw, grid, 0, 0, False, [True, False]))
+
+
+def phase_batched_run_pti(torch, gs, G, params, bs, tmp):
+    """17d: ``run_pti(batch=4)`` over 5 images (a chunk of 4 and a ragged
+    one of 1) at BATCH_RUN_PTI_STEPS, with every count set to 0 before
+    and read after: every image's pivots, tuned generator and results
+    entry, each render pass at N = 4 or 1."""
+    import numpy as np
+    from tgi_torch.apps.run_pti import run_pti
+    img_dir = os.path.join(tmp, "batch_images")
+    out_dir = os.path.join(tmp, "batch_out")
+    os.makedirs(img_dir, exist_ok=True)
+    imgs, _ = batch_targets(torch, G, params, BATCH_RUN_PTI_IMAGES, seed=3)
+    names = [f"img{i}" for i in range(BATCH_RUN_PTI_IMAGES)]
+    for name, img in zip(names, imgs):
+        np.save(os.path.join(img_dir, f"{name}.npy"), img[0].cpu().numpy())
+    s1, s2 = BATCH_RUN_PTI_STEPS
+    torch.cuda.synchronize()
+    zero_counts(gs)
+    t0 = time.perf_counter()
+    with _recorder(gs, keep=False) as rec:
+        results = run_pti(img_dir, out_dir, G=G, gen_params=params,
+                          pose_params=bs["nets"][0], vgg_params=bs["vgg"],
+                          lpips_head=bs["head"], first_inv_steps=s1,
+                          max_pti_steps=s2, gen_video=False, batch=BATCH,
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts(gs)
+    Ns = sorted(set(rec.Ns))
+    log(f"run_pti(batch={BATCH}) over {len(names)} images, {s1} + {s2} "
+        f"steps: {wall:.1f} s, launches {launched}, render passes at N = "
+        f"{Ns}; results {results}")
+    check([r["image"] for r in results] == names,
+          f"results for {[r['image'] for r in results]}")
+    with open(os.path.join(out_dir, "results.json")) as f:
+        check(json.load(f) == results, "results.json differs")
+    for r in results:
+        check(math.isfinite(r["final_lpips"]) and 0 <= r["pti_steps"] <= s2,
+              f"entry {r}")
+        ws = np.load(os.path.join(out_dir, f"{r['image']}_ws.npy"))
+        cam = np.load(os.path.join(out_dir, f"{r['image']}_cam.npy"))
+        check(ws.shape == (1, G.cfg.num_ws, G.cfg.w_dim)
+              and cam.shape == (1, 25) and np.isfinite(ws).all()
+              and np.isfinite(cam).all(), f"{r['image']}'s pivots")
+        check(os.path.getsize(os.path.join(out_dir, f"{r['image']}_G.pt"))
+              > 0, f"no {r['image']}_G.pt")
+    check(Ns == [1, BATCH] and launched["triplane_gather"] > 0
+          and launched["triplane_splat"] > 0,
+          f"run_pti(batch={BATCH}) passes at N = {Ns}, launches {launched}")
+    return {"wall_s": wall, "launches": launched, "results": results}
+
+
+def phase_batched_step_times(torch, gs, G, params, bs, steps=2, warmup=1):
+    """17e: ms per image of a stage-1 joint step and of a tuning step at
+    B = 1, 2, 4, with and without remat (CUDA events, median of
+    ``steps`` after ``warmup``), and the peak memory each takes above
+    what was allocated before it."""
+    import dataclasses as dc
+    from tgi_torch.invert.coach import (CoachConfig, MaskedAdam, PTICoach,
+                                        render_draws)
+    from tgi_torch.invert.projector import Projector
+    from tgi_torch.models.generator import stack_params
+    from tgi_torch.models.pose_resnet import stack_nets
+    out = {}
+    for B in BATCH_TIMING_SIZES:
+        for remat in (False, True):
+            proj = Projector(G, params, bs["vgg"], bs["head"], bs["nets"][0],
+                             dc.replace(bs["proj"].cfg, remat_render=remat))
+            gens = [torch.Generator(device=DEVICE).manual_seed(50 + b)
+                    for b in range(B)]
+            t255, imgs = bs["t255"][:B, 0], bs["imgs"][:B, 0]
+            feats = bs["feats"][:B]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            state, opts, w_std = proj.init_state_batch(
+                B, generators=gens, pose_params_b=stack_nets(bs["nets"][:B]))
+
+            def s1_step():
+                proj.step_batch(state, opts, bs["step"], w_std, t255, feats,
+                                targets_warp=imgs, generators=gens)
+
+            ms1 = cuda_ms(torch, s1_step, iters=steps, warmup=warmup)
+            peak1 = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            del state, opts
+            coach = PTICoach(G, bs["coach"].lpips,
+                             CoachConfig(lpips_threshold=0.0, remat=remat))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            params_b = _map_detach(stack_params(params, B))
+            for t in _leaves(params_b):
+                t.requires_grad_(True)
+            opt = MaskedAdam(_leaves(params_b), 3e-4)
+
+            def s2_step():
+                jitter, u = render_draws(G, gens, DEVICE)
+                losses, aux = coach._loss_batch(params_b, bs["ws"][:B],
+                                                bs["cams"][:B], imgs, jitter,
+                                                u)
+                aux["lpips"].tolist()      # the threshold's read-back
+                opt.zero_grad()
+                losses.sum().backward()
+                opt.step([True] * B)
+
+            ms2 = cuda_ms(torch, s2_step, iters=steps, warmup=warmup)
+            peak2 = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            del params_b, opt
+            key = f"B{B}{'_remat' if remat else ''}"
+            out[key] = {"stage1_ms_per_image": ms1 / B,
+                        "tuning_ms_per_image": ms2 / B,
+                        "stage1_step_ms": ms1, "tuning_step_ms": ms2,
+                        "stage1_peak_gib": peak1, "tuning_peak_gib": peak2}
+            log(f"batched step times {key}: stage 1 {ms1:.1f} ms a step "
+                f"({ms1 / B:.1f} a image), peak +{peak1:.2f} GiB; tuning "
+                f"{ms2:.1f} ms ({ms2 / B:.1f} a image), peak +{peak2:.2f} "
+                f"GiB")
+    return out
+
+
+def phase_batched_gate(gate):
+    """17f: the batched gate phase 12 ran beside the single one (same
+    bootstrapped nets, seed and budget): every image finite, its final
+    MSE at most 1.05 x its pivot's, the aimed nets 3 degrees off; image 0
+    against the single gate; the launches: one gather a render pass and
+    one splat a backward pass at N = 4, each render's forward run twice
+    under remat."""
+    qb, q = gate["batch_gate"], gate["gate"]
+    per = qb["per_image"]
+    log(f"batched gate (B = {BATCH}, {GATE_STAGE1} + {GATE_STAGE2} steps): "
+        f"{per}; mean final MS-SSIM {qb['mean_final_ms_ssim']:.4f}; "
+        f"seconds a image {qb['seconds_per_image']:.2f} (single gate "
+        f"{gate['seconds']['per_image']:.2f}); image 0 final MS-SSIM "
+        f"{per[0]['final_ms_ssim']:.4f} vs the single gate's "
+        f"{q['final_ms_ssim']:.4f}; launches {gate['launches']['batch_gate']}")
+    for p in per:
+        check(all(math.isfinite(v) for v in p.values()), f"batched gate {p}")
+        check(p["final_mse"] <= 1.05 * p["pivot_mse"],
+              f"batched gate: final MSE {p['final_mse']} vs pivot "
+              f"{p['pivot_mse']}")
+        check(abs(p["init_pose_err_deg"] - 3.0) < 0.1
+              and p["pti_steps"] == GATE_STAGE2, f"batched gate {p}")
+    check(abs(per[0]["final_ms_ssim"] - q["final_ms_ssim"]) <= 0.01,
+          "the batched gate's image 0 parts from the single gate")
+    s1, s2 = GATE_STAGE1, GATE_STAGE2
+    want = {"triplane_gather": 2 * BATCH + 8 * s1 + 4 * s2 + 4 * BATCH,
+            "triplane_splat": 4 * s1 + 2 * s2, "triplane_splat_sorted": 0}
+    check(gate["launches"]["batch_gate"] == want,
+          f"batched gate launches {gate['launches']['batch_gate']}, "
+          f"expected {want}")
+    return {k: v for k, v in qb.items()}
+
+
+def phase_batched(torch, gs, gate, tmp, bw):
+    """Phase 17, batched inversion on the gate's generator: a-c
+    ``phase_batched_steps``, the kernels' times at N = 4, d
+    ``phase_batched_run_pti``, e ``phase_batched_step_times``, f
+    ``phase_batched_gate``."""
+    from tgi_torch.scripts import selfinv_gate
+    t0 = time.perf_counter()
+    G, params = selfinv_gate.full_width_generator(
+        DEVICE, seed=selfinv_gate.GENERATOR_SEED)
+    bs = batch_setup(torch, G, params)
+    steps = phase_batched_steps(torch, gs, G, params, bs)
+    with torch.no_grad():
+        times = phase_batched_kernel_times(torch, gs,
+                                           steps.pop("n4_inputs"), bw)
+    run = phase_batched_run_pti(torch, gs, G, params, bs, tmp)
+    step_times = phase_batched_step_times(torch, gs, G, params, bs)
+    gate_b = phase_batched_gate(gate)
+    seconds = time.perf_counter() - t0
+    log(f"phase 17 (batched inversion) in {seconds:.1f} s")
+    return {"steps": steps, "kernel_times_n4": times, "run_pti": run,
+            "step_times": step_times, "gate": gate_b, "seconds": seconds}
+
+
 # The kernels of tgi's two kernel benches, at the benches' shapes: 3
 # planes of 256², the points of a frustum march of Ry x Rx rays and S
 # samples. The render pass's point count first, then the scripts'.
@@ -4428,6 +5109,7 @@ def main():
         training = phase_training(torch, gs, tmp)
         metrics = phase_metrics(torch, gs, card, tmp)
         photo = phase_photo_and_tf(torch, gs, G, params, card, tmp)
+        batched = phase_batched(torch, gs, gate, tmp, bw)
     gather_times = phase_times(torch, gs, G, params, bw)
     _, seen = phase_step_times(torch, gs, params, st)
     splat_times = phase_splat_times(torch, gs, seen, bw)
@@ -4506,8 +5188,21 @@ def main():
                                  "render_options"]["grad_launches"][
                                  "triplane_gather"],
                              "photo_run_pti": photo["photo"]["launches"][
-                                 "triplane_gather"]},
+                                 "triplane_gather"],
+                             "batched_stage1_step_n4": batched["steps"][
+                                 "stage1"]["launches"]["default"][
+                                 "triplane_gather"],
+                             "batched_tuning_step_n4": batched["steps"][
+                                 "tuning"]["launches"]["default"][
+                                 "triplane_gather"],
+                             "run_pti_batch4": batched["run_pti"][
+                                 "launches"]["triplane_gather"],
+                             "selfinv_gate_batch4": gate["launches"][
+                                 "batch_gate"]["triplane_gather"]},
         "max_abs_err": gather_err,
+        "n4_max_abs_err": batched["steps"]["kernels_vs_plain"][
+            "gather_max_abs_err"],
+        "n4_fine_pass": batched["kernel_times_n4"]["triplane_gather"],
         "sample_mixed_chunk_max_abs_err": outputs["sample_mixed"][
             "max_abs_err"],
         "render_orbit_batch_max_abs_err": outputs["orbit"]["max_abs_err"],
@@ -4542,8 +5237,23 @@ def main():
                                  "render_options"]["grad_launches"][
                                  "triplane_splat"],
                              "photo_run_pti": photo["photo"]["launches"][
-                                 "triplane_splat"]},
+                                 "triplane_splat"],
+                             "batched_stage1_step_n4": batched["steps"][
+                                 "stage1"]["launches"]["default"][
+                                 "triplane_splat"],
+                             "batched_tuning_step_n4": batched["steps"][
+                                 "tuning"]["launches"]["default"][
+                                 "triplane_splat"],
+                             "run_pti_batch4": batched["run_pti"][
+                                 "launches"]["triplane_splat"],
+                             "selfinv_gate_batch4": gate["launches"][
+                                 "batch_gate"]["triplane_splat"]},
         "max_abs_err": splat_err, "max_rel_err": splat_rel,
+        "n4_max_abs_err": batched["steps"]["kernels_vs_plain"][
+            "splat_max_abs_err"],
+        "n4_max_rel_err": batched["steps"]["kernels_vs_plain"][
+            "splat_max_rel_err"],
+        "n4_fine_pass": batched["kernel_times_n4"]["triplane_splat"],
         **splat_times, "check_shape_c16": small_splat}, {
         "name": "triplane_splat_sorted", "route": "cuda",
         "source": "tgi_torch/csrc/triplane_splat_sorted.cu",
@@ -4556,8 +5266,19 @@ def main():
                              "run_pti_stage2": mxu["stage2"][
                                  "triplane_splat_sorted"],
                              "selfinv_gate": gate["launches"]["gate"][
+                                 "triplane_splat_sorted"],
+                             "batched_stage1_step_n4": batched["steps"][
+                                 "stage1"]["launches"]["mxu"][
+                                 "triplane_splat_sorted"],
+                             "batched_tuning_step_n4": batched["steps"][
+                                 "tuning"]["launches"]["mxu"][
                                  "triplane_splat_sorted"]},
         "max_abs_err": sorted_err, "max_rel_err": sorted_rel,
+        "n4_max_abs_err": batched["steps"]["kernels_vs_plain"][
+            "sorted_max_abs_err"],
+        "n4_max_rel_err": batched["steps"]["kernels_vs_plain"][
+            "sorted_max_rel_err"],
+        "n4_keys": batched["steps"]["kernels_vs_plain"]["sorted_keys"],
         **sorted_times}, *bench_entries],
         "stage1_step_ms": {m: v["step"] for m, v in step1.items()},
         "stage1_launches_per_step": per_step,
@@ -4595,7 +5316,12 @@ def main():
                       "tiny_step_card_vs_cpu": training["tiny"],
                       "phase_s": training["seconds"]},
         "metrics": metrics,
-        "photo_tf_options": photo}),
+        "photo_tf_options": photo,
+        "batched": {"steps": batched["steps"],
+                    "step_times": batched["step_times"],
+                    "run_pti_wall_s": batched["run_pti"]["wall_s"],
+                    "gate": batched["gate"],
+                    "phase_s": batched["seconds"]}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,8 +3,8 @@ checkpoints, on the CPU at the tiny config (plane C = 8, 32² backbone,
 16² rays, 8 + 8 samples, SuperresolutionTiny, 64² images). The coach it
 drives is held against tgi's in ``test_torch_coach.py``; here the app's
 own contract: pivots in (or stage 1 without them), ``{name}_G.pt``,
-PNGs, orbit videos and ``results.json`` out, and ``NotImplementedError``
-for batched inversion, the part not ported yet.
+PNGs, orbit videos and ``results.json`` out, batched or one image at a
+time (``test_torch_run_pti_batch.py`` runs a batch).
 """
 
 import json
@@ -91,16 +91,24 @@ def test_run_pti_stage2_from_saved_pivots(setup, tmp_path):
                                   "use_locality_reg", "tensorboard",
                                   "use_wandb"])
 def test_run_pti_refuses_what_is_not_ported(setup, tmp_path, flag):
-    """Each of these outputs is ported now and is accepted; batched
-    inversion is not, and is refused with or without it."""
+    """Each of these outputs is ported and accepted, one image at a time
+    and in batches; only ``visualize_opt`` needs a batch of 1 (its
+    snapshots are per image) and raises ``ValueError`` with a batch, as
+    tgi's run_pti does."""
     assert app.run_pti(str(tmp_path), str(tmp_path / "out"), G=setup["gt"],
                        gen_params=setup["pt"], device="cpu",
                        **{flag: True}) == []
     assert json.loads((tmp_path / "out" / "results.json").read_text()) == []
-    with pytest.raises(NotImplementedError, match="item 18"):
-        app.run_pti(str(tmp_path), str(tmp_path), G=setup["gt"],
-                    gen_params=setup["pt"], device="cpu", batch=2,
-                    **{flag: True})
+    batched = dict(G=setup["gt"], gen_params=setup["pt"], device="cpu",
+                   batch=2, **{flag: True})
+    if flag == "visualize_opt":
+        with pytest.raises(ValueError, match="batch=1"):
+            app.run_pti(str(tmp_path), str(tmp_path / "b"), **batched)
+    else:
+        assert app.run_pti(str(tmp_path), str(tmp_path / "b"),
+                           **batched) == []
+        assert json.loads((tmp_path / "b" / "results.json")
+                          .read_text()) == []
 
 
 def test_run_pti_cli(setup, tmp_path, capsys):

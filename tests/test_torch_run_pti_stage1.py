@@ -159,15 +159,10 @@ def test_run_pti_cli_refuses_a_missing_weight_file(setup, tmp_path):
 @pytest.mark.parametrize("kw,item", [({"visualize_opt": True}, "item 7"),
                                      ({"batch": 2}, "item 18")])
 def test_run_pti_refuses_stage1_parts_not_ported(setup, tmp_path, kw, item):
-    """Batched inversion (item 18) is refused; stage 1's snapshots (item
-    7) are ported and accepted."""
-    if item == "item 18":
-        with pytest.raises(NotImplementedError, match=item):
-            app.run_pti(str(tmp_path), str(tmp_path), G=setup["gt"],
-                        gen_params=setup["pt"], device="cpu", **kw)
-    else:
-        assert app.run_pti(str(tmp_path), str(tmp_path), G=setup["gt"],
-                           gen_params=setup["pt"], device="cpu", **kw) == []
+    """Stage 1's snapshots (item 7) and batched inversion (item 18) are
+    both ported now and accepted on an empty directory."""
+    assert app.run_pti(str(tmp_path), str(tmp_path), G=setup["gt"],
+                       gen_params=setup["pt"], device="cpu", **kw) == []
 
 
 def test_invert_one_needs_a_projector_without_pivots(setup, tmp_path):

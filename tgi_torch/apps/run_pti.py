@@ -33,9 +33,15 @@ generator gets ``fused_dtype="bfloat16"``, stage 1 still renders in
 float32 (``ProjectorConfig.render_fp32``) and stage 2 tunes in the
 generator's bf16 blocks. A ``.pt`` keeps the config stored with it.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: batched inversion (ROADMAP Queue A item 18). ``click``,
-``PIL`` and ``imageio`` are imported only where they are used.
+With ``batch`` > 1 the images go through in chunks of that many
+(``tgi``'s ``_run_batched``, tgi/apps/run_pti.py:252-302): stage 1 by
+``Projector.project_batch`` and stage 2 by ``PTICoach.tune_batch``, each
+step rendering the whole chunk in one synthesis call, with every render
+recomputed in the backward pass (``remat_render`` / ``remat``, as
+``tgi`` sets them for a batch); then each image's outputs as above. A
+chunk reuses saved pivots only when every image of it has them.
+``click``, ``PIL`` and ``imageio`` are imported only where they are
+used.
 """
 
 from __future__ import annotations
@@ -53,11 +59,6 @@ from tgi_torch import default_device
 from tgi_torch.apps.gen_samples import parse_range  # noqa: F401 (tgi's API)
 
 CAMERA_DIMS = {"2d": 2, "quat": 4, "6d": 6}   # the pose head's outputs
-
-
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported yet "
-                               f"(ROADMAP Queue A item {item})")
 
 
 def list_images(directory):
@@ -139,7 +140,6 @@ def invert_one(name, img, *, G, gen_params, coach, out_dir, projector=None,
     projection's per-step metrics under ``"projection"`` when stage 1
     ran).
     """
-    from tgi_torch.io.checkpoints import save_checkpoint
     t0 = time.time()
     ws_file, cam_file = pivot_files(out_dir, name)
     dev = img.device
@@ -164,7 +164,20 @@ def invert_one(name, img, *, G, gen_params, coach, out_dir, projector=None,
     tuned, info = coach.tune(gen_params, ws, cam, img, generator=generator)
     if projection is not None:
         info["projection"] = projection
+    entry = write_outputs(name, img, G=G, gen_params=gen_params, ws=ws,
+                          cam=cam, tuned=tuned, info=info, out_dir=out_dir,
+                          save_pivot=save_pivot, evaluate=evaluate,
+                          gen_video=gen_video, gen_mesh=gen_mesh, tb=tb,
+                          step=step, t0=t0)
+    return entry, tuned, info
 
+
+def write_outputs(name, img, *, G, gen_params, ws, cam, tuned, info,
+                  out_dir, save_pivot=True, evaluate=None, gen_video=False,
+                  gen_mesh=False, tb=None, step=0, t0=None):
+    """One image's outputs after stage 2 (see :func:`invert_one`) and its
+    results entry, whose ``sec`` counts from ``t0``."""
+    from tgi_torch.io.checkpoints import save_checkpoint
     pil = importlib.util.find_spec("PIL") is not None
     if pil:
         from tgi_torch.utils.image import save_image_grid
@@ -206,7 +219,7 @@ def invert_one(name, img, *, G, gen_params, coach, out_dir, projector=None,
         entry.update(evaluate(final, img))
         with open(os.path.join(out_dir, f"{name}metrics.txt"), "w") as f:
             json.dump(entry, f, indent=1)
-    return entry, tuned, info
+    return entry
 
 
 def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
@@ -240,17 +253,22 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
     outputs (:func:`invert_one`); ``use_locality_reg`` tunes
     with the locality regulariser, its z drawn with the render's draws;
     ``tensorboard`` and ``use_wandb`` mirror the metrics.
+
+    ``batch`` > 1 inverts the images ``batch`` at a time
+    (:func:`_run_batched`); each image of a chunk draws both stages from
+    its own generator, seeded from the run's. ``visualize_opt`` needs a
+    batch of 1 and raises ``ValueError`` otherwise, as in ``tgi``.
     """
     from tgi_torch.invert.coach import CoachConfig, PTICoach
     from tgi_torch.invert.projector import Projector, ProjectorConfig
     from tgi_torch.losses.lpips import make_lpips
     from tgi_torch.models.pose_resnet import resnet34_init
     from tgi_torch.models.vgg import lpips_head_init, vgg16_init
-    from tgi_torch.utils.image import load_image
 
     device = device or default_device()
-    if batch > 1:
-        raise _not_ported("batch > 1 (tune_batch)", 18)
+    if batch > 1 and visualize_opt:
+        raise ValueError("--visualize-opt needs per-image snapshot "
+                         "callbacks; run with batch=1")
     if gen_video and importlib.util.find_spec("imageio") is None:
         # tgi would find out after both stages, at the first video.
         raise ImportError("gen_video writes orbit videos with imageio, "
@@ -275,7 +293,8 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
 
     projector = Projector(G, gen_params, vgg_params, lpips_head, pose_params,
                           ProjectorConfig(num_steps=first_inv_steps,
-                                          camera_mode=camera_mode),
+                                          camera_mode=camera_mode,
+                                          remat_render=batch > 1),
                           e4e_encode=e4e_encode)
     lp = make_lpips(lpips_type, vgg_params=vgg_params, vgg_head=lpips_head,
                     alex_params=alex_params, alex_head=alex_head,
@@ -286,7 +305,8 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
         # passes each image's pivot camera.
         from tgi_torch.losses.locality import SpaceRegularizer
         locality = SpaceRegularizer(G, gen_params, lp)
-    coach = PTICoach(G, lp, CoachConfig(max_pti_steps=max_pti_steps),
+    coach = PTICoach(G, lp, CoachConfig(max_pti_steps=max_pti_steps,
+                                        remat=batch > 1),
                      locality_regularizer=locality)
     tb = None
     if tensorboard:
@@ -308,34 +328,113 @@ def run_pti(image_dir, out_dir, *, G, gen_params, pose_params=None,
 
     results = []
     try:
-        for path in list_images(image_dir):
-            name = os.path.splitext(os.path.basename(path))[0]
-            # load_image gives a transposed (channels-last) view; contiguous
-            # NCHW tensors keep the CPU convolutions on their plain path.
-            img = torch.from_numpy(np.ascontiguousarray(
-                load_image(path, size=G.cfg.img_resolution)))
-            target_255 = torch.from_numpy(np.ascontiguousarray(
-                (load_image(path, size=256) + 1) * 127.5))
-            snapshot_fn = None
-            if visualize_opt:
-                from tgi_torch.utils.opt_viz import (
-                    make_projection_snapshotter)
-                snapshot_fn = make_projection_snapshotter(projector, out_dir,
-                                                          name, tb=tb)
-            entry, _, _ = invert_one(
-                name, img.to(device), G=G, gen_params=gen_params,
-                coach=coach, out_dir=out_dir, projector=projector,
-                target_255=target_255.to(device),
-                use_last_w_pivots=use_last_w_pivots, save_pivot=save_pivot,
-                generator=generator, evaluate=evaluate, gen_video=gen_video,
-                gen_mesh=gen_mesh, snapshot_fn=snapshot_fn, tb=tb,
-                step=len(results))
-            results.append(entry)
+        if batch > 1:
+            results = _run_batched(
+                list_images(image_dir), out_dir, batch=batch, G=G,
+                gen_params=gen_params, projector=projector, coach=coach,
+                generator=generator, use_last_w_pivots=use_last_w_pivots,
+                save_pivot=save_pivot, evaluate=evaluate,
+                gen_video=gen_video, gen_mesh=gen_mesh, tb=tb)
+        else:
+            for path in list_images(image_dir):
+                name = os.path.splitext(os.path.basename(path))[0]
+                img, target_255 = _load_targets(path, G)
+                snapshot_fn = None
+                if visualize_opt:
+                    from tgi_torch.utils.opt_viz import (
+                        make_projection_snapshotter)
+                    snapshot_fn = make_projection_snapshotter(
+                        projector, out_dir, name, tb=tb)
+                entry, _, _ = invert_one(
+                    name, img.to(device), G=G, gen_params=gen_params,
+                    coach=coach, out_dir=out_dir, projector=projector,
+                    target_255=target_255.to(device),
+                    use_last_w_pivots=use_last_w_pivots,
+                    save_pivot=save_pivot, generator=generator,
+                    evaluate=evaluate, gen_video=gen_video,
+                    gen_mesh=gen_mesh, snapshot_fn=snapshot_fn, tb=tb,
+                    step=len(results))
+                results.append(entry)
     finally:
         if tb is not None:
             tb.close()
     with open(os.path.join(out_dir, "results.json"), "w") as f:
         json.dump(results, f, indent=1)
+    return results
+
+
+def _load_targets(path, G):
+    """(image [1, 3, R, R] in [-1, 1], its 256² [0, 255] version) of one
+    file. ``load_image`` gives a transposed (channels-last) view;
+    contiguous NCHW tensors keep the CPU convolutions on their plain
+    path."""
+    from tgi_torch.utils.image import load_image
+    img = torch.from_numpy(np.ascontiguousarray(
+        load_image(path, size=G.cfg.img_resolution)))
+    target_255 = torch.from_numpy(np.ascontiguousarray(
+        (load_image(path, size=256) + 1) * 127.5))
+    return img, target_255
+
+
+def _run_batched(paths, out_dir, *, batch, G, gen_params, projector, coach,
+                 generator, use_last_w_pivots, save_pivot, evaluate,
+                 gen_video, gen_mesh, tb):
+    """Inversion ``batch`` images at a time (tgi/apps/run_pti.py:252-302):
+    per chunk (the last may be shorter) ``project_batch`` then
+    ``tune_batch``, or the chunk's saved pivots when every image of it
+    has them; then each image's outputs through :func:`write_outputs`,
+    its ``sec`` the image's share of the batched stages plus its own
+    outputs' time. Image b of a chunk draws both stages from its own
+    ``torch.Generator``, seeded from ``generator``. Returns the
+    results entries."""
+    results = []
+    dev = projector.device
+    for lo in range(0, len(paths), batch):
+        chunk = paths[lo:lo + batch]
+        names = [os.path.splitext(os.path.basename(p))[0] for p in chunk]
+        t0 = time.time()
+        seeds = torch.randint(0, 2 ** 62, (len(chunk),), generator=generator,
+                              device=generator.device).tolist()
+        gens = [torch.Generator(device=dev).manual_seed(s) for s in seeds]
+        loaded = [_load_targets(p, G) for p in chunk]
+        imgs = torch.stack([i for i, _ in loaded]).to(dev)      # [B,1,3,R,R]
+        t255s = torch.stack([t for _, t in loaded]).to(dev)
+        files = [pivot_files(out_dir, n) for n in names]
+        projections = [None] * len(chunk)
+        if use_last_w_pivots and all(os.path.exists(f) for pair in files
+                                     for f in pair):
+            ws_b = torch.stack([torch.from_numpy(np.load(wf)).float()
+                                for wf, _ in files]).to(dev)
+            cams_b = torch.stack([torch.from_numpy(np.load(cf)).float()
+                                  for _, cf in files]).to(dev)
+        else:
+            ws_b, cams_b, _, metrics = projector.project_batch(
+                t255s, targets_warp=imgs, generators=gens)
+            projections = [{k: v[:, b].tolist() for k, v in metrics.items()}
+                           for b in range(len(chunk))]
+            for b, (name, (wf, cf)) in enumerate(zip(names, files)):
+                if tb is not None:
+                    for st, v in enumerate(projections[b]["loss"]):
+                        tb.scalar(f"{name}/projection_loss", v, st)
+                np.save(wf, ws_b[b].cpu().numpy())
+                np.save(cf, cams_b[b].cpu().numpy())
+        tuned_b, info_b = coach.tune_batch(gen_params, ws_b, cams_b, imgs,
+                                           generators=gens)
+        share = (time.time() - t0) / len(chunk)
+        from tgi_torch.models.generator import take_image
+        for b, name in enumerate(names):
+            losses = info_b["losses"][:, b]
+            info = {"steps": info_b["steps"][b],
+                    "final_lpips": info_b["final_lpips"][b],
+                    "losses": losses[~torch.isnan(losses)].tolist()}
+            if projections[b] is not None:
+                info["projection"] = projections[b]
+            results.append(write_outputs(
+                name, imgs[b], G=G, gen_params=gen_params, ws=ws_b[b],
+                cam=cams_b[b], tuned=take_image(tuned_b, b), info=info,
+                out_dir=out_dir, save_pivot=save_pivot, evaluate=evaluate,
+                gen_video=gen_video, gen_mesh=gen_mesh, tb=tb,
+                step=len(results), t0=time.time() - share))
     return results
 
 
@@ -409,8 +508,7 @@ def validate_aux(pose_params=None, vgg_params=None, lpips_head=None,
 
 def main(argv=None):
     """Command line: ``python -m tgi_torch.apps.run_pti --network G.pt
-    --images DIR --outdir DIR``. The options mirror ``tgi``'s; ``--batch``
-    above 1 is not ported yet and raises."""
+    --images DIR --outdir DIR``. The options mirror ``tgi``'s."""
     import click
 
     @click.command()
@@ -449,7 +547,10 @@ def main(argv=None):
     @click.option("--first-inv-steps", default=400,
                   help="stage-1 projection steps")
     @click.option("--max-pti-steps", default=400)
-    @click.option("--batch", default=1)
+    @click.option("--batch", default=1,
+                  help="invert N images at once (project_batch + "
+                       "tune_batch; each image's own inversion, one render "
+                       "of all N per step)")
     @click.option("--use-last-w-pivots/--no-use-last-w-pivots",
                   default=False,
                   help="reload saved (ws, cam) pivots instead of running "

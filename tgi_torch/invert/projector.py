@@ -21,10 +21,24 @@ the joint phase (w_projector.py:174-188).
 here they are two Python loops over :meth:`Projector.step`. Both renders
 of a step run in float32 (``render_fp32``, the reference's
 w_projector.py:189) even for a generator whose ``fused_dtype`` is
-bfloat16, as in ``tgi``. ``tgi``'s ``dispatch_chunk`` (a TPU-relay
-guard), ``remat_render`` and ``batch_views`` (batching devices) and
-``canon_sr_max_res`` (a gated fast mode, ROADMAP Queue A item 18) have
-no counterpart. Snapshots fire on the plain step counter.
+bfloat16, as in ``tgi``. ``remat_render`` recomputes each render in the
+backward pass (``torch.utils.checkpoint``, ``tgi``'s ``jax.checkpoint``).
+``tgi``'s ``dispatch_chunk`` (a TPU-relay guard), ``batch_views`` (one
+N = 2 render of both views) and ``canon_sr_max_res`` (a gated fast mode,
+ROADMAP Queue A item 18b) have no counterpart. Snapshots fire on the
+plain step counter.
+
+:meth:`Projector.project_batch` inverts B targets at once, each with its
+own state (``tgi``'s ``project_batch``, projector.py:457-552): every
+leaf of the state and of the Adams' moments gains a leading image axis,
+the frozen generator stays shared but for the stacked ``noise_const``
+buffers, and each step renders all B images in one synthesis call per
+view. The loss is the sum of the images' losses, so each image's
+gradient is its own; Adam is elementwise and every image shares the
+step count and learning rate, so one Adam over the stacked leaves is B
+per-image Adams. Image b draws from ``generators[b]`` what ``project``
+draws from its generator, in the same order, so it equals a ``project``
+call with that generator up to reassociation.
 w starts at ``w_avg`` plus, with an ``e4e_encode``, the encoder's output
 for the 256² [0, 255] target (w_projector.py:99-115).
 
@@ -42,11 +56,14 @@ from functools import partial
 
 import torch
 
-from tgi_torch.invert.coach import _leaves, _map
-from tgi_torch.losses.basic import noise_regularization, normalize_noise
+from tgi_torch.invert.coach import _leaves, _map, checkpointed, render_draws
+from tgi_torch.losses.basic import (noise_regularization,
+                                    noise_regularization_per_image,
+                                    normalize_noise,
+                                    normalize_noise_per_image)
 from tgi_torch.losses.warp import (area_downsample, bilinear_resize_nchw,
-                                   calc_warping_loss)
-from tgi_torch.models.pose_resnet import resnet34_apply
+                                   calc_warping_loss, calc_warping_losses)
+from tgi_torch.models.pose_resnet import resnet34_apply, stack_nets
 from tgi_torch.models.vgg import lpips_features, warping_features
 from tgi_torch.render.cameras import (euler_to_rotmat, quaternion_to_rotmat,
                                       rot6d_to_rotmat)
@@ -79,6 +96,12 @@ class ProjectorConfig:
     # The reference forces fp32 renders during projection
     # (w_projector.py:189); False lets the generator's fused_dtype apply.
     render_fp32: bool = True
+    # Recompute each render in the backward pass instead of keeping its
+    # activations (torch.utils.checkpoint; tgi's remat_render): about one
+    # more forward per render, for the memory B images' renders take.
+    # Every draw is taken before the render and passed in, so the
+    # recompute sees the same values.
+    remat_render: bool = False
 
     @property
     def cam_lr(self):
@@ -279,20 +302,21 @@ class Projector:
             # Without the full-resolution target: the same 256² target in
             # [-1, 1].
             target_warp = target_255 / 127.5 - 1.0
+        if draws is None and cfg.remat_render:
+            draws = tuple(render_draws(self.G, [generator], self.device)
+                          for _ in range(2))
         (j_pred, u_pred), (j_canon, u_canon) = draws or ((None, None),
                                                          (None, None))
         pred_ext, pred_cam = self.camera(state["pose"], state["translation"],
                                          target_255)
         ws = (state["w"] + w_noise).repeat(1, self.G.cfg.num_ws, 1)
         gen_params = merge_noise(self.base_params, state["noise"])
-        render = partial(self.G.synthesis, gen_params, noise_mode="const",
-                         det=False, generator=generator,
-                         force_fp32=cfg.render_fp32)
-        pred = render(ws, pred_cam, jitter=j_pred, u=u_pred)
+        render = self._renderer(generator)
+        pred = render(gen_params, ws, pred_cam, j_pred, u_pred)
         # The canonical view renders the detached latent
         # (w_projector.py:203-205); pose and noise still get gradient.
-        canon = render(ws.detach(), self.canonical_cam, jitter=j_canon,
-                       u=u_canon)
+        canon = render(gen_params, ws.detach(), self.canonical_cam, j_canon,
+                       u_canon)
         pred_images_255 = pred["image"] * 127.5 + 128
 
         # Both warp-feature inputs are in [-1, 1] (warping_loss.py:37-38,
@@ -319,6 +343,17 @@ class Projector:
         loss = dist + reg * cfg.regularize_noise_weight + warp_loss
         return loss, {"dist": dist, "warp": warp_loss, "noise_reg": reg,
                       "pred_cam": pred_cam}
+
+    def _renderer(self, generator=None):
+        """render(params, ws, cam, jitter, u): one stochastic render of
+        the projection, recomputed in the backward pass under
+        ``remat_render``."""
+        def render(params, ws, cam, jitter, u):
+            return self.G.synthesis(params, ws, cam, noise_mode="const",
+                                    det=False, generator=generator,
+                                    jitter=jitter, u=u,
+                                    force_fp32=self.cfg.render_fp32)
+        return checkpointed(render) if self.cfg.remat_render else render
 
     # -- stepping -----------------------------------------------------------
 
@@ -364,7 +399,8 @@ class Projector:
         """The optimizer half of step ``step``, in place, from the
         gradients on ``state``'s leaves: the camera and translation Adams;
         after the preheat also the w + noise Adam, at the step's learning
-        rate; then every noise buffer renormalized."""
+        rate; then every noise buffer renormalized (each image's on its
+        own in a batched state, whose w is [B, 1, 1, w_dim])."""
         preheat = step < self.cfg.cam_preheat_steps
         names = ("cam", "trans") if preheat else ("cam", "trans", "w")
         for name in names:
@@ -378,9 +414,11 @@ class Projector:
             opts["w"].param_groups[0]["lr"] = self.schedule(step)[1]
         for name in names:
             opts[name].step()
+        normalize = (normalize_noise_per_image if state["w"].ndim == 4
+                     else normalize_noise)
         with torch.no_grad():
             for v in state["noise"].values():
-                v.copy_(normalize_noise(v))
+                v.copy_(normalize(v))
 
     def project(self, target_255, *, generator=None, num_steps=None,
                 target_full=None, snapshot_fn=None, snapshot_every=10,
@@ -416,11 +454,11 @@ class Projector:
         preheat_steps = min(cfg.cam_preheat_steps, num_steps)
         metrics = {"loss": [], "dist": [], "warp": []}
         for i in range(num_steps):
-            w_noise, render_draws = draws(i) if draws is not None else (
+            w_noise, step_draws = draws(i) if draws is not None else (
                 None, None)
             m = self.step(state, opts, i, w_std, target_255, target_feats,
                           target_warp=target_warp, generator=generator,
-                          w_noise=w_noise, draws=render_draws)
+                          w_noise=w_noise, draws=step_draws)
             for k, v in m.items():
                 metrics[k].append(float(v))
             done = i + 1
@@ -435,3 +473,201 @@ class Projector:
                                  target_255)
             ws = state["w"].detach().repeat(1, self.G.cfg.num_ws, 1)
         return ws, cam, _map(lambda t: t.detach(), state), metrics
+
+    # -- batched inversion --------------------------------------------------
+
+    def init_state_batch(self, B, *, generators=None, z=None, noise=None,
+                         targets_255=None, pose_params_b=None):
+        """:meth:`init_state` of B images at once: (state, optimizers,
+        w_std). Image b's leaves are row b of the state's: w [B, 1, 1,
+        w_dim], noise [B, res, res] per buffer, translation [B, 1, 3] and
+        the pose tree stacked (``pose_params_b``, a stacked tree of B
+        starting nets, or the projector's net B times).
+
+        Image b draws its z batch and then its noise from
+        ``generators[b]`` (or takes ``z`` [B, n, z_dim] and ``noise``, a
+        dict of [B, res, res] stacks); each image starts at its own
+        batch's w mean, plus the e4e code of its own target, and w_std is
+        image 0's, as ``tgi`` takes ``w_std[0]``."""
+        cfg = self.cfg
+        gens = list(generators) if generators is not None else [None] * B
+        dev = self.device
+        if z is None:
+            z = torch.stack([torch.randn((cfg.w_avg_samples,
+                                          self.G.cfg.z_dim), generator=g,
+                                         device=dev) for g in gens])
+        z = z.to(dev)
+        n = z.shape[1]
+        with torch.no_grad():
+            ws = self.G.mapping(self.base_params, z.reshape(B * n, -1),
+                                self.canonical_cam.expand(B * n, 25),
+                                truncation_psi=cfg.truncation_psi,
+                                truncation_cutoff=cfg.truncation_cutoff)
+            w = ws[:, 0, :].reshape(B, n, -1)
+            w_avg = w.mean(dim=1, keepdim=True)                 # [B, 1, D]
+            w_std = torch.sqrt(torch.sum(torch.square(w[0] - w_avg[0])) / n)
+            start_w = w_avg[:, None]                         # [B, 1, 1, D]
+            if self.e4e_encode is not None:
+                if targets_255 is None:
+                    raise ValueError("the e4e start needs targets_255")
+                t = targets_255.float().to(dev)
+                start_w = start_w + torch.stack([
+                    self.e4e_encode(t[b:b + 1])[:, None, :]
+                    for b in range(B)])
+        if noise is None:
+            noise = {"/".join(p): torch.stack([torch.randn(
+                get_path(self.base_params, p).shape, generator=g,
+                device=dev) for g in gens]) for p in self.noise_paths}
+
+        def fresh(t):
+            return t.detach().to(dev).clone().requires_grad_(True)
+
+        pose = (pose_params_b if pose_params_b is not None
+                else stack_nets([self.pose_params] * B))
+        state = {"w": fresh(start_w),
+                 "noise": {k: fresh(noise[k]) for k in
+                           ("/".join(p) for p in self.noise_paths)},
+                 "translation": fresh(torch.zeros((B, 1, 3))),
+                 "pose": _map(fresh, pose)}
+        opts = {"w": torch.optim.Adam([state["w"], *state["noise"].values()],
+                                      lr=cfg.first_inv_lr, **ADAM),
+                "cam": torch.optim.Adam(list(_leaves(state["pose"])),
+                                        lr=cfg.cam_lr, **ADAM),
+                "trans": torch.optim.Adam([state["translation"]],
+                                          lr=cfg.translation_lr, **ADAM)}
+        return state, opts, w_std
+
+    def _loss_batch(self, state, targets_255, target_feats, w_noise, draws,
+                    targets_warp=None):
+        """(the sum of the B images' losses, {"dist", "warp", "noise_reg":
+        [B] each, "pred_cam" [B, 25]}): :meth:`_loss` of every image of a
+        batched state, each view of all B images in one render. ``draws``
+        = ((jitter, u) of the predicted views, (jitter, u) of the
+        canonical ones), B images' each (``invert/coach.py::
+        render_draws``)."""
+        cfg = self.cfg
+        B = targets_255.shape[0]
+        if targets_warp is None:
+            targets_warp = targets_255 / 127.5 - 1.0
+        (j_pred, u_pred), (j_canon, u_canon) = draws
+        pred_ext, pred_cam = assemble_camera(
+            resnet34_apply(state["pose"], targets_255),
+            state["translation"].reshape(B, 3), cfg.camera_mode, cfg.radius,
+            self.intrinsic)
+        ws = (state["w"] + w_noise).reshape(B, 1, -1).repeat(
+            1, self.G.cfg.num_ws, 1)
+        gen_params = merge_noise(self.base_params, state["noise"])
+        render = self._renderer()
+        pred = render(gen_params, ws, pred_cam, j_pred, u_pred)
+        canon = render(gen_params, ws.detach(),
+                       self.canonical_cam.expand(B, 25), j_canon, u_canon)
+        pred_images_255 = pred["image"] * 127.5 + 128
+        warp = calc_warping_losses(
+            canon["image"], partial(warping_features, self.vgg_params),
+            pred_ext, self.init_ext, self.intrinsic[None],
+            pred["image_depth"], targets_warp)
+        t_res = targets_255.shape[-1]
+        if pred_images_255.shape[-1] > t_res:
+            pred_images_255 = area_downsample(pred_images_255, t_res)
+        elif pred_images_255.shape[-1] < t_res:
+            pred_images_255 = bilinear_resize_nchw(pred_images_255, t_res)
+        synth_feats = lpips_features(self.vgg_params, self.lpips_head,
+                                     pred_images_255)
+        dist = torch.sum(torch.square(target_feats - synth_feats), dim=1)
+        reg = noise_regularization_per_image(state["noise"])
+        loss = dist + reg * cfg.regularize_noise_weight + warp
+        return loss.sum(), {"dist": dist, "warp": warp, "noise_reg": reg,
+                            "pred_cam": pred_cam}
+
+    def step_batch(self, state, opts, step, w_std, targets_255, target_feats,
+                   *, targets_warp=None, generators=None, w_noise=None,
+                   draws=None):
+        """:meth:`step` of a batched state: B images' steps in one, in
+        place. Image b's w noise and render draws come from
+        ``generators[b]`` in :meth:`step`'s order (w noise, then the
+        predicted and the canonical view's), unless given as ``w_noise``
+        [B, 1, 1, w_dim] and ``draws`` (see :meth:`_loss_batch`). Returns
+        {"loss", "dist", "warp"}, each [B]."""
+        B = state["w"].shape[0]
+        gens = list(generators) if generators is not None else [None] * B
+        if draws is not None and w_noise is None and \
+                step >= self.cfg.cam_preheat_steps:
+            raise ValueError("given render draws need the w noise too")
+        if step < self.cfg.cam_preheat_steps:
+            w_noise = torch.zeros_like(state["w"])
+        elif w_noise is None:
+            w_noise = torch.stack([torch.randn(
+                state["w"].shape[1:], generator=g, device=self.device)
+                for g in gens]) * (w_std * self.schedule(step)[0])
+        if draws is None:
+            draws = [[], []]
+            for g in gens:                  # each image's draws in order
+                for view in draws:
+                    view.append(render_draws(self.G, [g], self.device))
+            draws = tuple((torch.cat([d[0] for d in v]),
+                           torch.cat([d[1] for d in v])) for v in draws)
+        for opt in opts.values():
+            opt.zero_grad(set_to_none=True)
+        loss, aux = self._loss_batch(state, targets_255, target_feats,
+                                     w_noise.to(self.device), draws,
+                                     targets_warp=targets_warp)
+        loss.backward()
+        self.update(state, opts, step)
+        dist, warp = aux["dist"].detach(), aux["warp"].detach()
+        return {"loss": dist + warp, "dist": dist, "warp": warp}
+
+    def project_batch(self, targets_255, *, targets_warp=None,
+                      pose_params_b=None, generators=None, num_steps=None,
+                      z=None, noise=None, draws=None):
+        """Invert B targets at once (``tgi``'s ``project_batch``,
+        BASELINE.json's configuration 5): B independent projections, each
+        with its own w, noise buffers, translation, pose net and Adam
+        moments, as the reference's per-image loop has them
+        (w_projector.py:62, 120-131).
+
+        targets_255: [B, 3, 256, 256] (or [B, 1, 3, 256, 256]) in [0,
+        255]; ``targets_warp``: optional [B(, 1), 3, R, R] in [-1, 1],
+        each image's warp target (``project``'s ``target_full``);
+        ``pose_params_b``: a stacked tree of B starting pose nets
+        (``models/pose_resnet.py::stack_nets``), e.g. the gate's aimed
+        nets. Draws: image b's from ``generators[b]`` (see
+        :meth:`init_state_batch` and :meth:`step_batch`), or ``z`` /
+        ``noise`` and ``draws(step) -> (w_noise, render draws)`` given.
+
+        Returns (ws [B, 1, num_ws, w_dim], cams [B, 1, 25], the final
+        state, metrics {"loss", "dist", "warp"}: [steps, B] tensors).
+        """
+        cfg = self.cfg
+        num_steps = num_steps or cfg.num_steps
+        if targets_255.ndim == 5:
+            targets_255 = targets_255[:, 0]
+        B = targets_255.shape[0]
+        targets_255 = targets_255.float().to(self.device).contiguous()
+        if targets_warp is not None:
+            if targets_warp.ndim == 5:
+                targets_warp = targets_warp[:, 0]
+            targets_warp = targets_warp.float().to(self.device).contiguous()
+        with torch.no_grad():
+            target_feats = lpips_features(self.vgg_params, self.lpips_head,
+                                          targets_255)
+        state, opts, w_std = self.init_state_batch(
+            B, generators=generators, z=z, noise=noise,
+            targets_255=targets_255, pose_params_b=pose_params_b)
+        metrics = {"loss": [], "dist": [], "warp": []}
+        for i in range(num_steps):
+            w_noise, step_draws = draws(i) if draws is not None else (
+                None, None)
+            m = self.step_batch(state, opts, i, w_std, targets_255,
+                                target_feats, targets_warp=targets_warp,
+                                generators=generators, w_noise=w_noise,
+                                draws=step_draws)
+            for k, v in m.items():
+                metrics[k].append(v)
+        metrics = {k: torch.stack(v).cpu() for k, v in metrics.items()}
+        with torch.no_grad():
+            _, cams = assemble_camera(
+                resnet34_apply(state["pose"], targets_255),
+                state["translation"].reshape(B, 3), cfg.camera_mode,
+                cfg.radius, self.intrinsic)
+            ws = state["w"].detach().repeat(1, 1, self.G.cfg.num_ws, 1)
+        return ws, cams[:, None], _map(lambda t: t.detach(), state), metrics

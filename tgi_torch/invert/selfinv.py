@@ -14,8 +14,11 @@ stage 1 (a generator on the device seeded ``seed + 1``) and stage 2
 as ``tgi`` re-uses its key). ``tgi``'s ``dispatch_chunk`` (a TPU-relay
 guard) has no counterpart; the quality trace (``qconv``) is taken every
 ``trace_every`` tuning steps from ``PTICoach.tune``'s ``checkpoint_fn``.
-``self_inversion_eval_batch`` waits for the batched projector and coach
-(ROADMAP Queue A item 18).
+
+``self_inversion_eval_batch`` (``tgi``'s, selfinv.py:285-420) inverts B
+such targets at once through ``Projector.project_batch`` and
+``PTICoach.tune_batch``; image 0 takes the single gate's target, camera
+and seeds, so its numbers compare with ``self_inversion_eval``'s.
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ from tgi_torch.invert.coach import CoachConfig, PTICoach, _leaves
 from tgi_torch.invert.projector import (Projector, ProjectorConfig,
                                         assemble_camera)
 from tgi_torch.losses.warp import area_downsample, bilinear_resize_nchw
-from tgi_torch.models.pose_resnet import resnet34_apply, resnet34_calibrate
+from tgi_torch.models.generator import take_image
+from tgi_torch.models.pose_resnet import (resnet34_apply, resnet34_calibrate,
+                                          stack_nets)
 from tgi_torch.render.cameras import (axis_angle_rotmat, fov_to_intrinsics,
                                       look_at_pose, pack_camera,
                                       rotmat_to_quat, rotmat_to_rot6d)
@@ -300,3 +305,126 @@ def self_inversion_eval(G, gen_params, *, seed=0, vgg_params, lpips_head,
         out["es_s"] = t3 - t2
     return out
 
+
+
+# Per-image (yaw, pitch) offsets of the batched gate's targets; image 0
+# is the single gate's default, so its numbers compare with it.
+_BATCH_POSE_OFFSETS = ((0.35, 0.12), (-0.3, 0.08), (0.25, -0.1),
+                       (-0.2, -0.15))
+# Image i of the batched gate draws from seeds seed + SEED_STRIDE * i
+# (target and aim), + 1 (stage 1) and + 2 (stage 2): image 0 from the
+# single gate's seeds.
+SEED_STRIDE = 10
+
+
+def self_inversion_eval_batch(G, gen_params, *, seed=0, vgg_params,
+                              lpips_head, pose_params, lpips_loss,
+                              batch_size=4, first_inv_steps=400,
+                              max_pti_steps=400, camera_mode="quat",
+                              truncation_psi=0.7, w_avg_samples=512,
+                              render_fp32=False, aim_pose_deg=3.0,
+                              pti_lpips_threshold=0.0, aim_calibrate=True,
+                              proj_overrides=None, e4e_encode=None,
+                              log=None):
+    """The gate for batched inversion: ``batch_size`` targets with known
+    (w*, cam*), the cameras at ``_BATCH_POSE_OFFSETS``, inverted at once
+    by ``Projector.project_batch`` (``remat_render`` on, as ``tgi``'s
+    batched gate sets it) and ``PTICoach.tune_batch`` (``remat`` on),
+    each image with its own aimed pose net. The reference's per-image
+    semantics (w_projector.py:62, 120-131) must hold at B > 1: image 0
+    takes :func:`self_inversion_eval`'s seeds (``SEED_STRIDE``), so
+    ``per_image[0]`` equals that gate's numbers up to reassociation.
+
+    Arguments as :func:`self_inversion_eval`'s; ``e4e_encode`` (which
+    ``tgi``'s batched gate does not take) starts each image at its own
+    e4e code, so the batched gate can run beside the single gate with
+    the same bootstrapped nets. Returns {"per_image": [{"final_mse",
+    "final_lpips", "final_ms_ssim", "pivot_mse", "pivot_ms_ssim",
+    "pose_err_deg", "pti_steps", "w_err", "init_pose_err_deg"}, ...],
+    "mean_final_ms_ssim", "mean_final_mse", "max_pose_err_deg",
+    "stage1_s", "stage2_s", "seconds_per_image"}, the seconds by the
+    host's clock (each step reads its losses back).
+    """
+    dev = next(_leaves(gen_params)).device
+    B = batch_size
+    proj_cfg = ProjectorConfig(num_steps=first_inv_steps,
+                               camera_mode=camera_mode,
+                               w_avg_samples=w_avg_samples,
+                               render_fp32=render_fp32, remat_render=True)
+    if proj_overrides:
+        proj_cfg = replace(proj_cfg, **proj_overrides)
+    proj = Projector(G, gen_params, vgg_params, lpips_head, pose_params,
+                     proj_cfg, e4e_encode=e4e_encode)
+    targets, t255s, cams_star, ws_stars, nets, init_errs = ([] for _ in
+                                                            range(6))
+    for i in range(B):
+        cpu = torch.Generator().manual_seed(seed + SEED_STRIDE * i)
+        z = torch.randn((1, G.cfg.z_dim), generator=cpu).to(dev)
+        with torch.no_grad():
+            ws_star = G.mapping(gen_params, z, proj.canonical_cam,
+                                truncation_psi=truncation_psi,
+                                truncation_cutoff=14)
+        yaw, pitch = _BATCH_POSE_OFFSETS[i % len(_BATCH_POSE_OFFSETS)]
+        cam_pose, cam_star = gate_camera(yaw, pitch, dev)
+        target, t255 = gate_target(G, gen_params, ws_star, cam_star)
+        net = pose_params
+        if aim_pose_deg:
+            net = aim_pose_net(pose_params, t255, cam_pose[:3, :3],
+                               err_deg=aim_pose_deg, camera_mode=camera_mode,
+                               generator=cpu, calibrate=aim_calibrate)
+        with torch.no_grad():
+            cam0 = assemble_camera(resnet34_apply(net, t255),
+                                   torch.zeros((1, 3), device=dev),
+                                   camera_mode, 2.7, proj.intrinsic)[1]
+        init_errs.append(float(rotation_error_deg(cam0, cam_star)[0]))
+        for lst, v in ((targets, target), (t255s, t255),
+                       (cams_star, cam_star), (ws_stars, ws_star),
+                       (nets, net)):
+            lst.append(v)
+    targets = torch.stack(targets)                      # [B, 1, 3, R, R]
+
+    def gens(offset):
+        return [torch.Generator(device=dev).manual_seed(
+            seed + SEED_STRIDE * i + offset) for i in range(B)]
+
+    t0 = time.perf_counter()
+    ws, cams, _, metrics = proj.project_batch(
+        torch.stack(t255s), targets_warp=targets,
+        pose_params_b=stack_nets(nets), generators=gens(1))
+    t1 = time.perf_counter()
+    if log:
+        log(f"batched self-inversion stage 1: {metrics['loss'].shape[0]} "
+            f"steps x {B} images, loss {metrics['loss'][0].tolist()} -> "
+            f"{metrics['loss'][-1].tolist()}")
+    coach = PTICoach(G, lpips_loss,
+                     CoachConfig(max_pti_steps=max_pti_steps, remat=True,
+                                 lpips_threshold=pti_lpips_threshold))
+    tuned_b, info = coach.tune_batch(gen_params, ws, cams, targets,
+                                     generators=gens(2))
+    t2 = time.perf_counter()
+    if log:
+        log(f"batched self-inversion stage 2: steps {info['steps']}, loss "
+            f"{info['losses'][0].tolist()} -> {info['losses'][-1].tolist()}")
+    per_image = []
+    for i in range(B):
+        final = reconstruction_quality(G, take_image(tuned_b, i), ws[i],
+                                       cams[i], targets[i], lpips_loss)
+        pivot = reconstruction_quality(G, gen_params, ws[i], cams[i],
+                                       targets[i], lpips_loss)
+        per_image.append({
+            "final_mse": final["mse"], "final_lpips": final["lpips"],
+            "final_ms_ssim": final["ms_ssim"],
+            "pivot_mse": pivot["mse"], "pivot_ms_ssim": pivot["ms_ssim"],
+            "pose_err_deg": float(rotation_error_deg(cams[i],
+                                                     cams_star[i])[0]),
+            "pti_steps": int(info["steps"][i]),
+            "w_err": float(torch.linalg.norm(ws[i][:, 0]
+                                             - ws_stars[i][:, 0])),
+            "init_pose_err_deg": init_errs[i]})
+    return {
+        "per_image": per_image,
+        "mean_final_ms_ssim": sum(p["final_ms_ssim"] for p in per_image) / B,
+        "mean_final_mse": sum(p["final_mse"] for p in per_image) / B,
+        "max_pose_err_deg": max(p["pose_err_deg"] for p in per_image),
+        "stage1_s": t1 - t0, "stage2_s": t2 - t1,
+        "seconds_per_image": (t2 - t0) / B}

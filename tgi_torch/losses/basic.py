@@ -22,33 +22,44 @@ def depth_tv_loss(depth):
     return dh + dw
 
 
-def _noise_reg_single(noise):
-    """Multi-scale autocorrelation penalty for one [H, W] noise map
-    (w_projector.py:222-239): sum over pyramid levels of squared mean
-    correlation with the 1-pixel-shifted map, halving via 2x2 avg pool."""
-    x = noise[None, None]
-    reg = 0.0
-    while True:
-        reg = reg + torch.mean(x * torch.roll(x, 1, dims=3)) ** 2
-        reg = reg + torch.mean(x * torch.roll(x, 1, dims=2)) ** 2
-        if x.shape[2] <= 8:
-            break
-        x = F.avg_pool2d(x, 2)
-    return reg
-
-
 def noise_regularization(noise_maps):
     """Sum the multi-scale penalty over a list/dict of [H, W] noise maps."""
     if isinstance(noise_maps, dict):
         noise_maps = list(noise_maps.values())
-    total = 0.0
-    for n in noise_maps:
-        total = total + _noise_reg_single(n)
-    return total
+    return noise_regularization_per_image([n[None] for n in noise_maps])[0]
 
 
 def normalize_noise(noise_map):
     """Re-project a noise map to zero mean / unit variance
     (w_projector.py:263-270)."""
-    n = noise_map - noise_map.mean()
-    return n * torch.rsqrt(torch.mean(torch.square(n)) + 1e-12)
+    return normalize_noise_per_image(noise_map[None])[0]
+
+
+def noise_regularization_per_image(noise_maps):
+    """Multi-scale autocorrelation penalty (w_projector.py:222-239) of
+    each image of stacked ``[B, H, W]`` maps (a list or dict of them),
+    summed over the maps -> [B]: per pyramid level the squared mean
+    correlation with the 1-pixel-shifted map, halving by 2x2 average
+    pooling down to 8²."""
+    if isinstance(noise_maps, dict):
+        noise_maps = list(noise_maps.values())
+    total = 0.0
+    for n in noise_maps:
+        x = n[:, None]
+        while True:
+            total = total + torch.mean(x * torch.roll(x, 1, dims=3),
+                                       dim=(1, 2, 3)) ** 2
+            total = total + torch.mean(x * torch.roll(x, 1, dims=2),
+                                       dim=(1, 2, 3)) ** 2
+            if x.shape[2] <= 8:
+                break
+            x = F.avg_pool2d(x, 2)
+    return total
+
+
+def normalize_noise_per_image(noise_maps):
+    """:func:`normalize_noise` of each map of a ``[B, H, W]`` stack on its
+    own: one mean and spread per image, never across images."""
+    n = noise_maps - noise_maps.mean(dim=(1, 2), keepdim=True)
+    return n * torch.rsqrt(torch.mean(torch.square(n), dim=(1, 2),
+                                      keepdim=True) + 1e-12)

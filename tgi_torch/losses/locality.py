@@ -14,6 +14,12 @@ The original generator's mapping and render run under
 and that render launches no splat on the card. z comes from a
 ``torch.Generator`` or is given as a tensor (the tests hand it
 ``tgi``'s draw).
+
+:meth:`SpaceRegularizer.per_image` gives the terms of B images at once
+(batched tuning): each image's samples around its own pivot, rendered
+by its own tuned copy under its own camera, all B in one render per
+sample; the mapping stays on the shared original weights
+(``tgi/losses/locality.py:49``).
 """
 
 from __future__ import annotations
@@ -80,3 +86,39 @@ class SpaceRegularizer:
             loss = loss + (self.lpips.from_unit(old, new).squeeze()
                            * cfg.lpips_lambda)
         return loss / cfg.num_samples
+
+    def per_image(self, new_params, w_pivots, cameras, *, z=None,
+                  generators=None):
+        """The terms of B images [B]: ``new_params`` carries per-image
+        leaves (``models/generator.py::stack_params``), w_pivots is [B,
+        num_ws, D], cameras [B, 25], and ``z`` [B, num_samples, z_dim]
+        (else image b's drawn from ``generators[b]``). Image b's term is
+        ``__call__``'s for its own copy, pivot, camera and z."""
+        cfg = self.cfg
+        B, S = w_pivots.shape[0], cfg.num_samples
+        dev = w_pivots.device
+        if z is None:
+            gens = generators or [None] * B
+            z = torch.stack([torch.randn((S, self.G.cfg.z_dim), generator=g,
+                                         device=dev) for g in gens])
+        z = z.to(dev)
+        with torch.no_grad():
+            w_samples = self.G.mapping(
+                self.original_params, z.reshape(B * S, -1),
+                cameras.repeat_interleave(S, dim=0),
+                truncation_psi=0.5).reshape(B, S, *w_pivots.shape[1:])
+            direction = w_samples - w_pivots[:, None]
+            norm = torch.linalg.norm(direction, dim=-1, keepdim=True)
+            ws = w_pivots[:, None] + cfg.alpha * direction / (norm + 1e-8)
+        loss = 0.0
+        for i in range(S):
+            with torch.no_grad():
+                old = self.G.synthesis(self.original_params, ws[:, i],
+                                       cameras, det=True)["image"]
+            new = self.G.synthesis(new_params, ws[:, i], cameras,
+                                   det=True)["image"]
+            loss = loss + torch.mean(torch.square(old - new),
+                                     dim=(1, 2, 3)) * cfg.l2_lambda
+            loss = loss + (self.lpips.from_unit(old, new).reshape(B)
+                           * cfg.lpips_lambda)
+        return loss / S

@@ -120,6 +120,23 @@ class GeneratorConfig:
                                                **overrides})
 
 
+def stack_params(params, B):
+    """B per-image copies of ``params`` in one tree: every leaf repeated
+    on a new leading image axis. ``synthesis`` then renders image b of
+    its batch with copy b (``nn/layers.py``'s per-image leaves)."""
+    if isinstance(params, dict):
+        return {k: stack_params(v, B) for k, v in params.items()}
+    return params.detach()[None].repeat(B, *([1] * params.ndim))
+
+
+def take_image(params, i):
+    """Copy ``i`` of a tree that :func:`stack_params` made (every leaf
+    per image), as a plain params tree."""
+    if isinstance(params, dict):
+        return {k: take_image(v, i) for k, v in params.items()}
+    return params[i]
+
+
 class TriPlaneGenerator:
     """Stateless functional model: all tensors live in the params dict."""
 
@@ -199,6 +216,11 @@ class TriPlaneGenerator:
         superresolution_apply). ``force_fp32`` renders in float32 whatever
         ``fused_dtype`` says (``plane_dtype`` still applies, as in
         ``tgi``).
+
+        ``params`` may carry per-image leaves (:func:`stack_params`, or
+        only the ``noise_const`` buffers stacked): then N is the number
+        of images, and one call renders them all, the tri-plane sampler
+        taking all N images' planes and points in one launch per pass.
         """
         cfg = self.cfg
         rk = cfg.rendering_kwargs

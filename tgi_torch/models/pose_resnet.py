@@ -13,6 +13,11 @@ the reference's ``.eval()`` copy does (w_projector.py:62). The statistics
 enter the forward through :func:`_bn`'s explicit formula, as in ``tgi``,
 so they receive gradients; stage 1's camera Adam updates them as ``tgi``
 does (ROADMAP Queue C, differences by design).
+
+B pose nets run in one forward when every leaf carries a leading image
+axis (:func:`stack_nets`): image b of ``x`` [B, 3, H, W] goes through
+net b, its convolutions grouped B ways. Each image keeps its own
+BatchNorm statistics, so nothing mixes images.
 """
 
 from __future__ import annotations
@@ -27,7 +32,35 @@ WIDTHS = (64, 128, 256, 512)
 def _bn(params, x, eps=1e-5):
     scale = params["weight"] * torch.rsqrt(params["running_var"] + eps)
     shift = params["bias"] - params["running_mean"] * scale
-    return x * scale[None, :, None, None] + shift[None, :, None, None]
+    if scale.ndim == 1:
+        scale, shift = scale[None], shift[None]
+    return x * scale[:, :, None, None] + shift[:, :, None, None]
+
+
+def _conv(x, w, stride=1, padding=0):
+    """F.conv2d; a per-image weight [B, O, I, k, k] convolves image b of
+    x [B, I, H, W] with weight b, as one grouped conv."""
+    if w.ndim == 4:
+        return F.conv2d(x, w, stride=stride, padding=padding)
+    B, O, I, k, _ = w.shape
+    y = F.conv2d(x.reshape(1, B * I, *x.shape[2:]), w.reshape(B * O, I, k, k),
+                 stride=stride, padding=padding, groups=B)
+    return y.reshape(B, O, *y.shape[2:])
+
+
+def _linear(params, x):
+    w, b = params["weight"], params["bias"]
+    if w.ndim == 2:
+        return x @ w.T + b
+    return torch.einsum("bi,boi->bo", x, w) + b
+
+
+def stack_nets(nets):
+    """One tree from B pose nets' trees: each leaf stacked on a new
+    leading axis."""
+    if isinstance(nets[0], dict):
+        return {k: stack_nets([n[k] for n in nets]) for k in nets[0]}
+    return torch.stack(nets)
 
 
 def _bn_init(c, device):
@@ -91,25 +124,26 @@ def _stride(li, bi):
 
 def _basic_block(params, x, stride):
     identity = x
-    out = F.conv2d(x, params["conv1"]["weight"], stride=stride, padding=1)
+    out = _conv(x, params["conv1"]["weight"], stride=stride, padding=1)
     out = F.relu(_bn(params["bn1"], out))
-    out = F.conv2d(out, params["conv2"]["weight"], padding=1)
+    out = _conv(out, params["conv2"]["weight"], padding=1)
     out = _bn(params["bn2"], out)
     if "downsample" in params:
         identity = _bn(params["downsample"]["1"],
-                       F.conv2d(x, params["downsample"]["0"]["weight"],
-                                stride=stride))
+                       _conv(x, params["downsample"]["0"]["weight"],
+                             stride=stride))
     return F.relu(out + identity)
 
 
 def _stem(params, x):
-    x = F.conv2d(x, params["conv1"]["weight"], stride=2, padding=3)
+    x = _conv(x, params["conv1"]["weight"], stride=2, padding=3)
     x = F.relu(_bn(params["bn1"], x))
     return F.max_pool2d(x, 3, stride=2, padding=1)
 
 
 def resnet34_apply(params, x, pre_tanh=False):
-    """x: [N, 3, H, W] -> [N, output_dims].
+    """x: [N, 3, H, W] -> [N, output_dims]; with a stacked tree
+    (:func:`stack_nets`) N is the number of nets, one image each.
 
     ``pre_tanh=True`` returns the final layer's pre-activation."""
     x = _stem(params, x)
@@ -118,9 +152,9 @@ def resnet34_apply(params, x, pre_tanh=False):
         for bi in range(len(params[f"layer{li}"])):
             x = _basic_block(params[f"layer{li}"][str(bi)], x, _stride(li, bi))
     x = x.mean(dim=(2, 3))  # adaptive avg pool to 1x1
-    x = F.relu(x @ params["fc"]["weight"].T + params["fc"]["bias"])
-    x = F.relu(x @ params["fc2"]["weight"].T + params["fc2"]["bias"])
-    x = x @ params["fc3"]["weight"].T + params["fc3"]["bias"]
+    x = F.relu(_linear(params["fc"], x))
+    x = F.relu(_linear(params["fc2"], x))
+    x = _linear(params["fc3"], x)
     return x if pre_tanh else torch.tanh(x)
 
 

@@ -17,6 +17,12 @@ the accumulated image stay float32. Noise modes: ``"const"`` (the stored
 ``noise_strength``, drawn from a ``torch.Generator`` or given as a
 ``noise`` dict keyed like the params (``{"b8": {"conv0": t, "conv1":
 t}, ...}``; :func:`random_noise` draws one in ``tgi``'s key order).
+
+Per-image leaves (``nn/layers.py``): a leaf with a leading image axis
+serves image b with its slice b, every other leaf is shared. Stage 1 of
+batched inversion stacks only ``noise_const`` (``[B, res, res]``); stage
+2 stacks every leaf, so ``const`` is ``[B, C, 4, 4]`` and
+``noise_strength`` ``[B]``. The batch of ``ws`` is then B.
 """
 
 from __future__ import annotations
@@ -95,6 +101,14 @@ def _check_noise_mode(noise_mode):
 # SynthesisLayer
 
 
+def _per_image(t, rank):
+    """A leaf of rank ``rank`` (one value per image: ``[B, res, res]``
+    noise, ``[B]`` strengths) as ``[B, 1, 1, 1]``-broadcastable over the
+    activations; a shared leaf as it is."""
+    return t.reshape(t.shape[0], 1, *t.shape[1:], *([1] * (3 - rank))) \
+        if t.ndim == rank else t
+
+
 def synthesis_layer_init(generator, in_channels, out_channels, w_dim,
                          resolution, kernel_size=3, use_noise=True,
                          device="cuda"):
@@ -124,11 +138,12 @@ def synthesis_layer_apply(params, x, w, *, up=1, use_noise=True,
     if not use_noise or noise_mode == "none":
         noise = None
     elif noise_mode == "const":
-        noise = params["noise_const"] * params["noise_strength"]
+        noise = _per_image(params["noise_const"], 3) * _per_image(
+            params["noise_strength"], 1)
     elif noise is None:
         raise ValueError("noise_mode='random' needs the layer's noise")
     else:
-        noise = noise * params["noise_strength"]
+        noise = noise * _per_image(params["noise_strength"], 1)
 
     x = modulated_conv2d(x, params["weight"], styles, noise=noise, up=up,
                          padding=params["weight"].shape[-1] // 2,
@@ -157,7 +172,7 @@ def torgb_layer_init(generator, in_channels, out_channels, w_dim,
 
 
 def torgb_layer_apply(params, x, w, *, conv_clamp=None):
-    out_c, in_c, kh, kw = params["weight"].shape
+    out_c, in_c, kh, kw = params["weight"].shape[-4:]
     weight_gain = 1 / math.sqrt(in_c * kh * kw)
     styles = fully_connected_apply(params["affine"], w) * weight_gain
     x = modulated_conv2d(x, params["weight"], styles, demodulate=False)
@@ -207,7 +222,9 @@ def synthesis_block_apply(params, x, img, ws, *, in_channels, conv_clamp=256,
     w_idx = 0
     noise = noise or {}
     if in_channels == 0:
-        x = params["const"].to(dtype)[None].repeat(ws.shape[0], 1, 1, 1)
+        const = params["const"].to(dtype)
+        x = const if const.ndim == 4 else const[None].repeat(
+            ws.shape[0], 1, 1, 1)
     else:
         x = synthesis_layer_apply(
             params["conv0"], x.to(dtype), ws[:, w_idx], up=up,

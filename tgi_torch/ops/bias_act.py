@@ -53,16 +53,23 @@ def bias_act(x: torch.Tensor, b: torch.Tensor | None = None, dim: int = 1,
              act: str = "linear", alpha: float | None = None,
              gain: float | None = None,
              clamp: float | None = None) -> torch.Tensor:
-    """Add bias along ``dim``, apply ``act``, scale by ``gain``, clamp."""
+    """Add bias along ``dim``, apply ``act``, scale by ``gain``, clamp.
+
+    ``b`` is ``[C]``, or ``[N, C]`` with one bias per image: then ``dim``
+    is not 0 and ``x`` is ``[N, ...]``."""
     spec = activation_funcs[act]
     alpha = _rounded(spec.def_alpha if alpha is None else alpha, x.dtype)
     gain = _rounded(spec.def_gain if gain is None else gain, x.dtype)
 
     if b is not None:
-        assert b.ndim == 1 and 0 <= dim < x.ndim
-        assert b.shape[0] == x.shape[dim]
-        x = x + b.to(x.dtype).reshape(
-            [-1 if i == dim else 1 for i in range(x.ndim)])
+        assert 0 <= dim < x.ndim
+        shape = [-1 if i == dim else 1 for i in range(x.ndim)]
+        if b.ndim == 2:
+            assert dim > 0 and tuple(b.shape) == (x.shape[0], x.shape[dim])
+            shape[0] = x.shape[0]
+        else:
+            assert b.ndim == 1 and b.shape[0] == x.shape[dim]
+        x = x + b.to(x.dtype).reshape(shape)
     x = spec.func(x, alpha)
     if gain != 1:
         x = x * gain

@@ -21,10 +21,14 @@ def osg_decoder_init(generator, n_features=32, hidden_dim=64, output_dim=32,
 
 
 def osg_decoder_apply(params, sampled_features, lr_multiplier=1.0):
-    """sampled_features: [N, 3, M, C] -> {'rgb': [N, M, out], 'sigma': [N, M, 1]}."""
+    """sampled_features: [N, 3, M, C] -> {'rgb': [N, M, out], 'sigma': [N, M, 1]}.
+
+    With per-image weights (``[N, O, I]`` leaves, ``nn/layers.py``)
+    image n's M points go through decoder n."""
     x = sampled_features.mean(dim=1)                # aggregate planes [N,M,C]
     N, M, C = x.shape
-    x = x.reshape(N * M, C)
+    if params["net0"]["weight"].ndim == 2:
+        x = x.reshape(N * M, C)
     x = fully_connected_apply(params["net0"], x, lr_multiplier=lr_multiplier)
     x = F.softplus(x)
     x = fully_connected_apply(params["net1"], x, lr_multiplier=lr_multiplier)

@@ -18,6 +18,12 @@ script runs on the CUDA card at ``bench.py``'s budget; ``run_gate``
 takes smaller counts. Prints one JSON object (also written to
 ``--out``): the bootstrap's report, the gate's metrics and seconds, and
 the tri-plane kernels' launches in each part.
+
+    python -m tgi_torch.scripts.selfinv_gate --batch 4 [--out F.json]
+
+also runs the batched gate (``invert.selfinv.self_inversion_eval_batch``)
+after the single one, with the same bootstrapped nets, e4e start, seed
+and camera lr: 4 targets inverted at once, image 0 the single gate's.
 """
 
 from __future__ import annotations
@@ -73,14 +79,17 @@ def seeded_nets(device, seed=1):
 
 def run_gate(G, params, *, device, num_images=1024, pose_steps=2000,
              vgg_steps=800, stage1=400, stage2=400, preheat=None,
-             trace_every=50, aim_pose_deg=3.0, log=None):
-    """Bootstrap, then the gate. ``preheat`` overrides the projector's
-    camera-only steps (50), for budgets shorter than that. Returns
-    {"bootstrap": report, "gate": metrics, "launches": {"bootstrap",
-    "gate"}, "seconds": {...}}."""
+             trace_every=50, aim_pose_deg=3.0, batch=None, log=None):
+    """Bootstrap, then the gate, then with ``batch`` the batched gate of
+    that many images on the same nets. ``preheat`` overrides the
+    projector's camera-only steps (50), for budgets shorter than that.
+    Returns {"bootstrap": report, "gate": metrics, ["batch_gate":
+    metrics,] "launches": {"bootstrap", "gate"[, "batch_gate"]},
+    "seconds": {...}}."""
     from tgi_torch.invert.bootstrap import bootstrap_aux_nets
     from tgi_torch.invert.projector import ProjectorConfig
-    from tgi_torch.invert.selfinv import self_inversion_eval
+    from tgi_torch.invert.selfinv import (self_inversion_eval,
+                                          self_inversion_eval_batch)
 
     def sync():
         if torch.device(device).type == "cuda":
@@ -110,22 +119,39 @@ def run_gate(G, params, *, device, num_images=1024, pose_steps=2000,
     sync()
     t2 = time.perf_counter()
     after = launches()
-    return {"bootstrap": report, "gate": q,
-            "launches": {"bootstrap": {k: mid[k] - before[k] for k in mid},
-                         "gate": {k: after[k] - mid[k] for k in after}},
-            "seconds": {"bootstrap": t1 - t0, "gate": t2 - t1,
-                        "per_image": q["stage1_s"] + q["stage2_s"]},
-            "cam_lr_quat": overrides["cam_lr_quat"]}
+    out = {"bootstrap": report, "gate": q,
+           "launches": {"bootstrap": {k: mid[k] - before[k] for k in mid},
+                        "gate": {k: after[k] - mid[k] for k in after}},
+           "seconds": {"bootstrap": t1 - t0, "gate": t2 - t1,
+                       "per_image": q["stage1_s"] + q["stage2_s"]},
+           "cam_lr_quat": overrides["cam_lr_quat"]}
+    if batch:
+        qb = self_inversion_eval_batch(
+            G, params, seed=GATE_SEED, vgg_params=vgg_t, lpips_head=head,
+            pose_params=pose_t, lpips_loss=lp, batch_size=batch,
+            first_inv_steps=stage1, max_pti_steps=stage2,
+            aim_pose_deg=aim_pose_deg, aim_calibrate=False, e4e_encode=e4e,
+            proj_overrides=overrides, log=log)
+        sync()
+        t3 = time.perf_counter()
+        end = launches()
+        out["batch_gate"] = qb
+        out["launches"]["batch_gate"] = {k: end[k] - after[k] for k in end}
+        out["seconds"].update(batch_gate=t3 - t2,
+                              per_image_batched=qb["seconds_per_image"])
+    return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="also run the batched gate of this many images")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     G, params = full_width_generator("cuda", seed=GENERATOR_SEED)
-    out = run_gate(G, params, device="cuda",
+    out = run_gate(G, params, device="cuda", batch=args.batch,
                    log=lambda m: print(m, flush=True))
     out["device"] = torch.cuda.get_device_name(0)
     text = json.dumps(out)
