@@ -222,6 +222,24 @@ the single one (20 + 60 steps on the same bootstrapped nets): each
 image's final MSE at most 1.05 x its pivot's, image 0 within 0.01
 MS-SSIM of the single gate, and its launches.
 
+Phase 18 drives the port's last modules at full width: (a)
+``training_loop(mesh=make_mesh())`` over a process group of world size 1
+on NCCL (its store a file in the temporary directory), 2 steps of phase
+14's configuration on phase 14's dataset, against the same 2 steps with
+``mesh=None``, held to phase 14's tolerances, with the collectives a
+step, the gathers and the splats counted (on one rank the collectives
+move nothing: this is the code path on the card, not a speed-up); (b)
+``synthesis`` under ``ray_constrained`` of a mesh naming the card twice
+(rays = 2) against the unsharded render, forward and one backward to ws
+with deterministic cuDNN, the gather once per shard per pass; (c) CLIP
+ViT-B/32 (drawn weights, fp32) card vs CPU at batch 4 with 77-token
+prompts from the BPE tokenizer, and ``clip_loss`` of a 512² render with
+its gradient to ws through the gather and the splat against the plain
+sampler, timed; (d) the visualizer served on 127.0.0.1 in a thread: the
+page, frames of each render type, the stats and a capture, a served
+frame equal to the direct call, ms a frame with the plane cache hit and
+missed.
+
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the tgi_torch package beside it, the
@@ -230,6 +248,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2456,12 +2475,14 @@ def phase_train_dataset(torch, tmp):
 
 class step_recorder:
     """Inside the block, every ``GANTrainer.train_step`` is timed with
-    CUDA events and its launches, phase flags and metrics recorded."""
+    CUDA events and its launches, collectives, phase flags and metrics
+    recorded."""
 
     def __init__(self, torch, gs):
         self.torch, self.gs, self.records = torch, gs, []
 
     def __enter__(self):
+        from tgi_torch.parallel import collectives
         from tgi_torch.train.gan import GANTrainer
         self.cls, self.real = GANTrainer, GANTrainer.train_step
         torch, gs, records, real = self.torch, self.gs, self.records, \
@@ -2470,6 +2491,7 @@ class step_recorder:
         def timed(trainer, state, z, c, real_img, rng, cur_nimg, do_greg,
                   do_dreg, ada_p=0.0):
             before = counts(gs)
+            calls = collectives.CALLS
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             out = real(trainer, state, z, c, real_img, rng, cur_nimg,
@@ -2482,6 +2504,7 @@ class step_recorder:
                 ms=ev[0].elapsed_time(ev[1]),
                 gathers=after["triplane_gather"] - before["triplane_gather"],
                 splats=after["triplane_splat"] - before["triplane_splat"],
+                collectives=collectives.CALLS - calls,
                 metrics={k: float(v) for k, v in out[1].items()}))
             return out
 
@@ -4762,6 +4785,448 @@ def phase_batched(torch, gs, gate, tmp, bw):
             "step_times": step_times, "gate": gate_b, "seconds": seconds}
 
 
+# Phase 18: the last modules. The mesh: data-parallel training over the
+# one card's process group and the ray split; CLIP and its loss; the
+# visualizer.
+MESH_STEPS = 2             # training_loop steps with and without the mesh
+CLIP_BATCH = 4             # images and prompts of the card-vs-CPU check
+CLIP_CONTEXT = 77          # tokens a prompt
+# ViT-B/32 logits, card vs CPU (fp32, TF32 off): of the largest |logit|.
+CLIP_CPU_TOL = 1e-4
+VIZ_FRAMES = 4             # frames timed with the plane cache hit, missed
+CLIP_PROMPTS = ("a photo of a face", "a smiling woman with red hair",
+                "an old man with a grey beard, wearing glasses",
+                "a child laughing at the camera")
+
+
+def _merges_file(tmp):
+    """A small BPE merges file (the published one cannot be fetched):
+    merges of the prompts' commonest pairs, in the published format."""
+    path = os.path.join(tmp, "merges.txt")
+    lines = ["#version: small", "t h", "th e</w>", "a n", "i n", "e r",
+             "a r", "o r", "e n", "r e", "s m", "sm i", "l i", "n g</w>",
+             "f a", "fa c", "fac e</w>", "h a", "i r</w>", "g l", "gl a"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def _init_group(torch, tmp):
+    """A process group of world size 1 on NCCL, its store a file in
+    ``tmp``."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(tmp, "nccl_store"),
+        rank=0, world_size=1)
+    return dist
+
+
+def _group_norm_err(torch, a, b, paths, group):
+    """||a - b||_2 / ||b||_2 over the gradients whose path starts with
+    ``group`` (every one for None)."""
+    sel = [i for i, p in enumerate(paths) if group is None
+           or p[0] == group]
+    da = torch.cat([(a[i] - b[i]).reshape(-1) for i in sel])
+    nb = torch.cat([b[i].reshape(-1) for i in sel])
+    return (da.norm() / nb.norm()).item()
+
+
+def _step_diffs(torch, a, b, g_paths, d_paths):
+    """Per step of two training runs: the metrics' largest relative
+    difference, and the applied gradients' per-group norm errors (G:
+    mapping, backbone, decoder, SR; D whole)."""
+    out = []
+    for step, (ra, rb) in enumerate(zip(a["records"], b["records"])):
+        m = max(abs(ra["metrics"][k] - rb["metrics"][k])
+                / max(1.0, abs(rb["metrics"][k])) for k in rb["metrics"])
+        grads = {}
+        for phase, paths, groups in (
+                (0, g_paths, ("mapping", "backbone", "decoder",
+                              "superresolution")), (1, d_paths, (None,))):
+            ga, gb = a["grads"][2 * step + phase], b["grads"][2 * step + phase]
+            for group in groups:
+                grads[group or "D"] = _group_norm_err(torch, ga, gb, paths,
+                                                      group)
+        out.append({"metrics": m, "grads": grads})
+    return out
+
+
+def phase_mesh_training(torch, gs, tmp):
+    """a. ``training_loop(mesh=make_mesh())`` over a process group of
+    world size 1 on NCCL against ``mesh=None`` (twice), each MESH_STEPS
+    steps of phase 14's configuration from seed 0 on phase 14's dataset
+    (R1 and the density regulariser on the first step). On one rank every
+    collective runs and moves nothing: this shows the code path on
+    the card, not a speed-up. Only step 0's G phase has the same inputs
+    in every run: two unsharded runs on the card part after the first
+    Adam update (the splat's and cuDNN's atomics, the augment pipe's
+    ``grid_sample`` backward, and Adam's first step of b1 = 0 moving
+    every weight by about lr whatever the size of its gradient). So step
+    0's G phase is held to phase 14's tolerances (g_loss and g_reg
+    within TRAIN_CPU_TOL relative, the applied gradients per group
+    within BF16_GRAD_TOL of the norm) and step 0's d_loss within
+    BF16_GRAD_TOL relative; every later difference is logged beside the
+    unsharded run's against its repeat."""
+    from tgi_torch.apps.train_gan import training_configs
+    from tgi_torch.parallel import make_mesh
+    from tgi_torch.train import gan
+    from tgi_torch.train.loop import training_loop
+    G, d_cfg, cfg = training_configs(batch_size=TRAIN_BATCH)
+    kimg = MESH_STEPS * TRAIN_BATCH / 1000
+    common = dict(G=G, d_cfg=d_cfg, data_path=os.path.join(tmp, "train_data"),
+                  cfg=cfg, total_kimg=kimg, kimg_per_tick=kimg,
+                  snapshot_ticks=0, image_snapshot_ticks=0, augment_p=0.2,
+                  seed=0, device=DEVICE)
+    dist = _init_group(torch, tmp)
+    runs = {}
+    real_apply = gan._apply
+    try:
+        mesh = make_mesh()
+        check(mesh.shape == {"data": 1, "rays": 1} and mesh.group is not None,
+              f"make_mesh() in a group of one: {mesh}")
+        for name, m in (("mesh", mesh), ("no_mesh", None),
+                        ("no_mesh_again", None)):
+            applied = []
+
+            def record(opt, params, grads):
+                applied.append([gan._sanitize(g).detach().clone()
+                                for g in grads])
+                return real_apply(opt, params, grads)
+
+            gan._apply = record
+            zero_counts(gs)
+            with step_recorder(torch, gs) as records:
+                state = training_loop(
+                    mesh=m, run_dir=os.path.join(tmp, f"mesh_run_{name}"),
+                    **common)
+            gan._apply = real_apply
+            runs[name] = dict(records=list(records), grads=applied,
+                              launches=counts(gs))
+            paths = {k: [p for p, _ in gan._leaves(state[k])]
+                     for k in ("g_params", "d_params")}
+            del state
+    finally:
+        gan._apply = real_apply
+        dist.destroy_process_group()
+    a, b = runs["mesh"], runs["no_mesh"]
+    for name, r in runs.items():
+        for i, rec in enumerate(r["records"]):
+            log(f"  {name} step {i}: greg {rec['greg']} R1 {rec['r1']}: "
+                f"{rec['ms']:.1f} ms, {rec['gathers']} gathers, "
+                f"{rec['splats']} splats, {rec['collectives']} collectives, "
+                f"{rec['metrics']}")
+    check(all(len(r["records"]) == MESH_STEPS for r in runs.values()),
+          "a run took another number of steps")
+    check(all(r["collectives"] > 0 for r in a["records"])
+          and all(r["collectives"] == 0 for n, run in runs.items()
+                  if n != "mesh" for r in run["records"]),
+          "collectives: the mesh's steps run them, the others none")
+    for ra, rb in zip(a["records"], b["records"]):
+        want = STEP_LAUNCHES["greg" if rb["greg"] else "plain"]
+        check((ra["gathers"], ra["splats"]) == (rb["gathers"], rb["splats"])
+              == want, f"launches {ra['gathers']}, {ra['splats']} with the "
+              f"mesh, {rb['gathers']}, {rb['splats']} without; expected "
+              f"{want}")
+        check(all(math.isfinite(v) for v in ra["metrics"].values()),
+              f"a loss with the mesh is not finite: {ra['metrics']}")
+    diffs = _step_diffs(torch, a, b, paths["g_params"], paths["d_params"])
+    spread = _step_diffs(torch, runs["no_mesh_again"], b, paths["g_params"],
+                         paths["d_params"])
+    for step, (d, s) in enumerate(zip(diffs, spread)):
+        log(f"  step {step}: mesh vs no mesh: metrics {d['metrics']:.3g}, "
+            f"gradient norm errors {d['grads']}; no mesh vs its repeat: "
+            f"metrics {s['metrics']:.3g}, {s['grads']}")
+    m0, r0 = a["records"][0]["metrics"], b["records"][0]["metrics"]
+    for k, tol in (("g_loss", TRAIN_CPU_TOL), ("g_reg", TRAIN_CPU_TOL),
+                   ("d_loss", BF16_GRAD_TOL)):
+        check(abs(m0[k] - r0[k]) <= tol * max(1.0, abs(r0[k])),
+              f"step 0 {k} with vs without the mesh {m0[k]} vs {r0[k]}")
+    g0 = {k: v for k, v in diffs[0]["grads"].items() if k != "D"}
+    check(max(g0.values()) <= BF16_GRAD_TOL, f"step 0's G phase gradients "
+          f"with vs without the mesh {g0} > {BF16_GRAD_TOL}")
+    per_step = [r["collectives"] for r in a["records"]]
+    log(f"collectives a step (world size 1: they move nothing; the code "
+        f"path on the card, not a speed-up): {per_step}")
+    return {"collectives_per_step": per_step,
+            "step_ms_mesh": [r["ms"] for r in a["records"]],
+            "step_ms_no_mesh": [r["ms"] for r in b["records"]],
+            "step_ms_no_mesh_again": [r["ms"] for r in
+                                      runs["no_mesh_again"]["records"]],
+            "launches": a["launches"], "mesh_vs_no_mesh": diffs,
+            "no_mesh_vs_repeat": spread}
+
+
+def phase_ray_split(torch, gs, G, params):
+    """b. ``synthesis`` at full width under ``ray_constrained`` of a mesh
+    that names the card twice (rays = 2) against the unsharded render:
+    the image, image_raw and depth within SWAP_TOL; one backward of a
+    fixed scalar loss to ws with deterministic cuDNN within GRAD_TOL of
+    the norm; the gather once per shard per pass (4 a render), the splat
+    once per shard per backward pass (4); the forward of each timed."""
+    import tgi_torch.render.renderer as renderer
+    from tgi_torch.apps.gen_samples import seed_z
+    from tgi_torch.parallel import make_mesh, ray_constrained
+    mesh = make_mesh(devices=[DEVICE + ":0"] * 2, rays=2)
+    check(mesh.shape == {"data": 1, "rays": 2}, f"ray mesh {mesh.shape}")
+    with torch.no_grad():
+        ws0 = G.mapping(params, seed_z(0, G.cfg.z_dim, DEVICE),
+                        _camera(torch, 0.0), truncation_psi=0.7,
+                        truncation_cutoff=14)
+    cam = _camera(torch, 0.3)
+    weights = [w.to(DEVICE) for w in _loss_weights(torch, G)]
+
+    def run(split):
+        ws = ws0.clone().requires_grad_(True)
+        zero_counts(gs)
+        with ray_constrained(mesh) if split else contextlib.nullcontext():
+            out = G.synthesis(params, ws, cam, det=True)
+            fwd = (gs.LAUNCHES, gs.SPLAT_LAUNCHES)
+            _scalar_loss(out, weights).backward()
+        torch.cuda.synchronize()
+        return ({k: out[k].detach() for k in ("image", "image_raw",
+                                              "image_depth")},
+                ws.grad, fwd, (gs.LAUNCHES, gs.SPLAT_LAUNCHES))
+
+    check(renderer.sample_triplanes is gs.sample_triplanes,
+          "the renderer does not sample through the kernels")
+    torch.backends.cudnn.deterministic = True
+    try:
+        whole, g_whole, fwd_w, all_w = run(False)
+        split, g_split, fwd_s, all_s = run(True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    errs = {k: (split[k] - whole[k]).abs().max().item() for k in whole}
+    g_err = _norm_err(g_split, g_whole)
+    log(f"ray split (2 shards on one card) vs unsharded render: max abs "
+        f"{errs}; gradient to ws norm err {g_err:.3g}; launches (gather, "
+        f"splat) forward {fwd_s} vs {fwd_w}, with the backward {all_s} vs "
+        f"{all_w}")
+    check(all(e <= SWAP_TOL for e in errs.values()),
+          f"ray split vs unsharded render {errs} > {SWAP_TOL}")
+    check(g_err <= GRAD_TOL, f"ray split gradient {g_err} > {GRAD_TOL}")
+    check(fwd_w == (2, 0) and fwd_s == (4, 0) and all_w == (2, 2)
+          and all_s == (4, 4), f"launches split {fwd_s}, {all_s}, whole "
+          f"{fwd_w}, {all_w}")
+    with torch.no_grad():
+        ms_whole = cuda_ms(torch, lambda: G.synthesis(params, ws0, cam,
+                                                      det=True), iters=10)
+        with ray_constrained(mesh):
+            ms_split = cuda_ms(torch, lambda: G.synthesis(
+                params, ws0, cam, det=True), iters=10)
+    log(f"512² render forward (CUDA events, median of 10): unsharded "
+        f"{ms_whole:.2f} ms, split in 2 on one card {ms_split:.2f} ms")
+    return {"max_abs_err": errs, "grad_norm_err": g_err,
+            "launches_forward": fwd_s[0], "launches_backward": all_s[1],
+            "render_ms_unsharded": ms_whole, "render_ms_split2": ms_split}
+
+
+def phase_clip(torch, gs, G, params, tmp):
+    """c. CLIP ViT-B/32 with drawn weights (seed 9), fp32, TF32 off: (1)
+    ``clip_apply`` on the card against its CPU run at batch CLIP_BATCH,
+    224² pixels and CLIP_CONTEXT-token prompts from the BPE tokenizer on
+    a small merges file, logits within CLIP_CPU_TOL of the largest; (2)
+    ``clip_loss`` of a 512² render against a prompt, its gradient to ws
+    through the gather and the splat against the plain sampler with
+    deterministic cuDNN (the loss within SWAP_TOL, the gradient within
+    GRAD_TOL of the norm), 2 gathers and 2 splats; (3) the times of
+    ``clip_apply`` at batch 4, and of the loss from ws forward and
+    forward + backward (CUDA events)."""
+    import tgi_torch.render.renderer as renderer
+    from tgi_torch.apps.gen_samples import seed_z
+    from tgi_torch.losses import clip_loss
+    from tgi_torch.models import clip
+    cfg = clip.ClipConfig()
+    cp_cpu = clip.clip_init(torch.Generator().manual_seed(9), cfg,
+                            device="cpu")
+    cp = _to(cp_cpu, DEVICE)
+    tok = clip.SimpleTokenizer(_merges_file(tmp))
+    ids = tok.tokenize(list(CLIP_PROMPTS), context_length=CLIP_CONTEXT)
+    check(tuple(ids.shape) == (CLIP_BATCH, CLIP_CONTEXT)
+          and int(ids.max()) == tok.encoder["<|endoftext|>"],
+          f"tokens {tuple(ids.shape)}, max id {int(ids.max())}")
+    px = torch.rand(CLIP_BATCH, 3, 224, 224,
+                    generator=torch.Generator().manual_seed(10)) * 2 - 1
+    with torch.no_grad():
+        card = clip.clip_apply(cp, px.to(DEVICE), ids.to(DEVICE), cfg)[0]
+        cpu = clip.clip_apply(cp_cpu, px, ids, cfg)[0]
+    c_err = _rel_err(card.cpu(), cpu)
+    log(f"CLIP ViT-B/32 card vs CPU at batch {CLIP_BATCH}: logits "
+        f"{cpu.flatten()[:4].tolist()}..., worst element {c_err:.3g} of "
+        f"the largest")
+    check(math.isfinite(c_err) and c_err <= CLIP_CPU_TOL,
+          f"CLIP card vs CPU {c_err} > {CLIP_CPU_TOL}")
+    with torch.no_grad():
+        ws0 = G.mapping(params, seed_z(1, G.cfg.z_dim, DEVICE),
+                        _camera(torch, 0.0), truncation_psi=0.7,
+                        truncation_cutoff=14)
+    cam = _camera(torch, -0.2)
+    prompt = ids[:1].to(DEVICE)
+
+    def loss_grad(sampler):
+        renderer.sample_triplanes = sampler
+        try:
+            ws = ws0.clone().requires_grad_(True)
+            loss = clip_loss(cp, G.synthesis(params, ws, cam,
+                                             det=True)["image"], prompt, cfg)
+            loss.sum().backward()
+            torch.cuda.synchronize()
+            return loss.detach(), ws.grad
+        finally:
+            renderer.sample_triplanes = gs.sample_triplanes
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        zero_counts(gs)
+        k_loss, k_grad = loss_grad(gs.sample_triplanes)
+        launches = (gs.LAUNCHES, gs.SPLAT_LAUNCHES)
+        p_loss, p_grad = loss_grad(gs.sample_triplanes_plain)
+        check((gs.LAUNCHES, gs.SPLAT_LAUNCHES) == launches,
+              "the plain sampler launched a kernel")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    l_err = (k_loss - p_loss).abs().max().item()
+    g_err = _norm_err(k_grad, p_grad)
+    log(f"clip_loss of a 512² render: {k_loss.item():.6g} (plain "
+        f"{p_loss.item():.6g}); gradient to ws max |g| "
+        f"{k_grad.abs().max().item():.4g}, kernels vs plain norm err "
+        f"{g_err:.3g}; launches (gather, splat) {launches}")
+    check(l_err <= SWAP_TOL, f"clip_loss kernels vs plain {l_err}")
+    check(k_grad.abs().max().item() > 0 and g_err <= GRAD_TOL,
+          f"clip_loss gradient kernels vs plain {g_err} > {GRAD_TOL}")
+    check(launches == (2, 2), f"(gather, splat) {launches}, expected (2, 2)")
+    ws_t = ws0.clone().requires_grad_(True)
+
+    def fwd_bwd():
+        clip_loss(cp, G.synthesis(params, ws_t, cam, det=True)["image"],
+                  prompt, cfg).sum().backward()
+
+    with torch.no_grad():
+        apply_ms = cuda_ms(torch, lambda: clip.clip_apply(
+            cp, px.to(DEVICE), ids.to(DEVICE), cfg), iters=10)
+        fwd_ms = cuda_ms(torch, lambda: clip_loss(
+            cp, G.synthesis(params, ws0, cam, det=True)["image"], prompt,
+            cfg), iters=10)
+    fb_ms = cuda_ms(torch, fwd_bwd, iters=10)
+    log(f"CUDA events, median of 10: clip_apply at batch {CLIP_BATCH} "
+        f"{apply_ms:.2f} ms; the CLIP loss of a 512² render from ws "
+        f"forward {fwd_ms:.2f} ms, forward + backward {fb_ms:.2f} ms")
+    return {"card_vs_cpu_rel_err": c_err, "loss_err": l_err,
+            "grad_norm_err": g_err, "launches": launches,
+            "clip_apply_ms_b4": apply_ms, "loss_fwd_ms": fwd_ms,
+            "loss_fwd_bwd_ms": fb_ms}
+
+
+def phase_visualizer(torch, gs, G, params, tmp):
+    """d. ``VisualizerState`` on the seed-0 full-width generator served on
+    127.0.0.1 in a thread: GET /, /render (image at mult 1 and 2,
+    image_depth, planes, style mixing), /stats and /capture (into
+    ``tmp``); the PNG sizes, one served frame equal to the direct call's
+    (deterministic cuDNN; within one level of 255, a value that rounds
+    on a half level), the captured file likewise; 2 gathers a rendered
+    frame (none
+    for the planes view); then ms a frame (host clock; the frame comes
+    back to the host) with the plane cache hit (camera moves) and missed
+    (new seeds), VIZ_FRAMES each."""
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from PIL import Image
+    from tgi_torch.apps.visualizer import (VisualizerState, make_handler,
+                                           render_kwargs)
+    from tgi_torch.utils.image import to_uint8
+    state = VisualizerState(G, params, capture_dir=os.path.join(tmp, "shots"))
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    img, rays, planes = (G.cfg.img_resolution,
+                         G.cfg.neural_rendering_resolution,
+                         G.cfg.backbone_resolution)
+    queries = (("seed=1&mult=1&yaw=0.2", img), ("seed=1&mult=2", img),
+               ("seed=1&mult=2&rtype=image_depth", rays),
+               ("seed=1&mult=2&rtype=planes&layerch=37", planes),
+               ("seed=1&mult=2&mixseed=3&mixlayer=7&pitch=0.1", img))
+    # Deterministic cuDNN algorithms while frames are compared: cuDNN's
+    # default backbone forward does not repeat bit for bit (PERF.md §7).
+    torch.backends.cudnn.deterministic = True
+    zero_counts(gs)
+    try:
+        html = urllib.request.urlopen(base + "/", timeout=120).read().decode()
+        check("stylemix" in html and "cond yaw" in html, "the page")
+        frames = []
+        for q, size in queries:
+            png = urllib.request.urlopen(f"{base}/render?{q}",
+                                         timeout=300).read()
+            img = np.asarray(Image.open(io.BytesIO(png)))
+            check(img.shape == (size, size, 3), f"/render?{q}: {img.shape}")
+            frames.append(img)
+        launches = (gs.LAUNCHES, gs.SPLAT_LAUNCHES)
+        stats = json.loads(urllib.request.urlopen(base + "/stats",
+                                                  timeout=60).read())
+        cap = json.loads(urllib.request.urlopen(
+            f"{base}/capture?{queries[0][0]}", timeout=300).read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the server thread did not stop")
+    try:
+        direct = to_uint8(state.render(**render_kwargs(
+            {k: [v] for k, v in (p.split("=")
+                                 for p in queries[0][0].split("&"))})))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    captured = np.asarray(Image.open(cap["path"]))
+    diff = {name: int(np.abs(f.astype(int) - direct).max())
+            for name, f in (("served", frames[0]), ("captured", captured))}
+    log(f"visualizer: {len(queries)} frames served, stats {stats}, launches "
+        f"(gather, splat) {launches}; served and captured frames against "
+        f"the direct call, max |Δ| in levels of 255: {diff}")
+    check(stats["frames"] == len(queries) and stats["avg_ms"] > 0,
+          f"stats {stats}")
+    check(launches == (2 * (len(queries) - 1), 0),
+          f"(gather, splat) {launches} for {len(queries) - 1} rendered "
+          f"frames and one planes view")
+    check(max(diff.values()) <= 1, f"a served or captured frame differs "
+          f"from the direct call by more than one level: {diff}")
+    check(all(f.std() > 0 for f in frames), "a served frame is flat")
+
+    def frame_ms(kws):
+        out = []
+        for kw in kws:
+            t0 = time.perf_counter()
+            state.render(**kw)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    state.render(seed=20)
+    hit = frame_ms([dict(seed=20, yaw=0.05 * i) for i in range(VIZ_FRAMES)])
+    miss = frame_ms([dict(seed=21 + i) for i in range(VIZ_FRAMES)])
+    log(f"visualizer ms a frame at mult 2 (96 + 96 samples), median of "
+        f"{VIZ_FRAMES}, host clock: plane cache hit {hit:.1f}, missed "
+        f"{miss:.1f}")
+    return {"frames": len(queries), "launches": launches,
+            "frame_ms_cache_hit": hit, "frame_ms_cache_miss": miss}
+
+
+def phase_last_modules(torch, gs, G, params, tmp):
+    """Phase 18: a ``phase_mesh_training``, b ``phase_ray_split``, c
+    ``phase_clip``, d ``phase_visualizer``."""
+    t0 = time.perf_counter()
+    out = {"mesh_training": phase_mesh_training(torch, gs, tmp),
+           "ray_split": phase_ray_split(torch, gs, G, params),
+           "clip": phase_clip(torch, gs, G, params, tmp),
+           "visualizer": phase_visualizer(torch, gs, G, params, tmp)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 18 (mesh, ray split, CLIP, visualizer) in "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 # The kernels of tgi's two kernel benches, at the benches' shapes: 3
 # planes of 256², the points of a frustum march of Ry x Rx rays and S
 # samples. The render pass's point count first, then the scripts'.
@@ -5110,6 +5575,7 @@ def main():
         metrics = phase_metrics(torch, gs, card, tmp)
         photo = phase_photo_and_tf(torch, gs, G, params, card, tmp)
         batched = phase_batched(torch, gs, gate, tmp, bw)
+        last = phase_last_modules(torch, gs, G, params, tmp)
     gather_times = phase_times(torch, gs, G, params, bw)
     _, seen = phase_step_times(torch, gs, params, st)
     splat_times = phase_splat_times(torch, gs, seen, bw)
@@ -5198,7 +5664,15 @@ def main():
                              "run_pti_batch4": batched["run_pti"][
                                  "launches"]["triplane_gather"],
                              "selfinv_gate_batch4": gate["launches"][
-                                 "batch_gate"]["triplane_gather"]},
+                                 "batch_gate"]["triplane_gather"],
+                             "training_loop_mesh_2_steps": last[
+                                 "mesh_training"]["launches"][
+                                 "triplane_gather"],
+                             "ray_split_render_2_shards": last["ray_split"][
+                                 "launches_forward"],
+                             "clip_loss_step": last["clip"]["launches"][0],
+                             "visualizer_5_frames": last["visualizer"][
+                                 "launches"][0]},
         "max_abs_err": gather_err,
         "n4_max_abs_err": batched["steps"]["kernels_vs_plain"][
             "gather_max_abs_err"],
@@ -5247,7 +5721,13 @@ def main():
                              "run_pti_batch4": batched["run_pti"][
                                  "launches"]["triplane_splat"],
                              "selfinv_gate_batch4": gate["launches"][
-                                 "batch_gate"]["triplane_splat"]},
+                                 "batch_gate"]["triplane_splat"],
+                             "training_loop_mesh_2_steps": last[
+                                 "mesh_training"]["launches"][
+                                 "triplane_splat"],
+                             "ray_split_backward_2_shards": last[
+                                 "ray_split"]["launches_backward"],
+                             "clip_loss_step": last["clip"]["launches"][1]},
         "max_abs_err": splat_err, "max_rel_err": splat_rel,
         "n4_max_abs_err": batched["steps"]["kernels_vs_plain"][
             "splat_max_abs_err"],
@@ -5321,7 +5801,8 @@ def main():
                     "step_times": batched["step_times"],
                     "run_pti_wall_s": batched["run_pti"]["wall_s"],
                     "gate": batched["gate"],
-                    "phase_s": batched["seconds"]}}),
+                    "phase_s": batched["seconds"]},
+        "last_modules": last}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

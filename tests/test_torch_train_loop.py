@@ -197,24 +197,51 @@ def test_training_loop_ticks_checkpoint_resume(tmp_path):
                            saved[("g_params", "decoder", "net0", "weight")])
 
 
-def test_unported_options_raise(tmp_path):
-    """The mesh (ROADMAP item 14) and orbax snapshots raise; so does
-    ``--mesh-data`` on the command line."""
-    from tgi_torch.apps.train_gan import main, train_gan
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """Orbax snapshots raise (``io/orbax_io.py`` has no twin, by design).
+    The mesh and ``--mesh-data`` (ROADMAP item 14, refused until it was
+    ported) run on one CPU device: a step over the (1, 1) mesh is the
+    step without it, bit for bit, through ``training_loop`` and
+    ``train_gan``, and the command line takes ``--mesh-data 1``;
+    ``--mesh-data 2`` without a process group of two is refused."""
+    from tgi_torch.apps import train_gan as app
+    from tgi_torch.parallel import make_mesh
+    from tgi_torch.train.gan import train_state_tree
     from tgi_torch.train.loop import training_loop
     G, d_cfg, cfg = _tiny_models()
-    common = dict(G=G, d_cfg=d_cfg, data_path=str(tmp_path),
-                  run_dir=str(tmp_path / "run"), cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        training_loop(mesh=object(), **common)
+    data = _png_dataset(tmp_path, "zip", n=2, res=64)
+    common = dict(G=G, d_cfg=d_cfg, data_path=data, cfg=cfg, device="cpu",
+                  total_kimg=0.002, image_snapshot_ticks=0)
     with pytest.raises(NotImplementedError, match="orbax"):
-        training_loop(checkpoint_backend="orbax", **common)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train_gan(str(tmp_path), str(tmp_path / "run"), mesh_data=2,
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        main(["--data", str(tmp_path), "--outdir", str(tmp_path / "run"),
-              "--mesh-data", "2", "--device", "cpu"])
+        training_loop(checkpoint_backend="orbax",
+                      run_dir=str(tmp_path / "o"), **common)
+    want = _tree_bits(train_state_tree(training_loop(
+        run_dir=str(tmp_path / "a"), **common)))
+    got = _tree_bits(train_state_tree(training_loop(
+        mesh=make_mesh(devices=["cpu"]), run_dir=str(tmp_path / "b"),
+        **common)))
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[p], want[p]) for p in want)
+
+    monkeypatch.setattr(app, "training_configs",
+                        lambda **kw: (G, d_cfg, cfg))
+    state = app.train_gan(data, str(tmp_path / "c"), mesh_data=1,
+                          device="cpu", total_kimg=0.002,
+                          image_snapshot_ticks=0)
+    got = _tree_bits(train_state_tree(state))
+    assert all(torch.equal(got[p], want[p]) for p in want)
+    # The command line's --total-kimg is whole kimg, as tgi's: 0 builds
+    # the mesh and the state and takes no step.
+    with pytest.raises(SystemExit) as done:
+        app.main(["--data", data, "--outdir", str(tmp_path / "d"),
+                  "--mesh-data", "1", "--device", "cpu", "--total-kimg",
+                  "0"])
+    assert done.value.code == 0
+    with pytest.raises(ValueError, match="data axis"):
+        app.train_gan(data, str(tmp_path / "e"), mesh_data=2, device="cpu")
+    with pytest.raises(ValueError, match="data axis"):
+        app.main(["--data", data, "--outdir", str(tmp_path / "f"),
+                  "--mesh-data", "2", "--device", "cpu"])
 
 
 def test_training_configs_are_tgi_defaults():

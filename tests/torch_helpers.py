@@ -11,6 +11,8 @@ from tgi.ops import grid_sample as jgs
 from tgi_torch.ops import grid_sample as gs
 from tgi_torch.scripts import frustum_points
 
+from tests.torch_tiny import TINY, TINY_D, TINY_GAN, TINY_RK  # noqa: F401
+
 TOL = 1e-5
 
 
@@ -90,16 +92,6 @@ def tpu_route_grads(C, M, N=1, H=32, W=32, box_warp=1.0):
         want = jax.jit(vjp)(jnp.asarray(planes), jnp.asarray(coords),
                             jnp.asarray(g))
     return port_splat_grads(planes, coords, g, box_warp), want
-
-
-# The tiny generator of ``__graft_entry__.py``: plane C = 8, 32² backbone,
-# 16² rays, 8 + 8 samples, SuperresolutionTiny.
-TINY = dict(z_dim=32, c_dim=25, w_dim=32, img_resolution=64,
-            backbone_resolution=32, plane_channels=8, mapping_layers=2,
-            channel_base=512, channel_max=32, neural_rendering_resolution=16)
-TINY_RK = dict(superresolution_module="SuperresolutionTiny",
-               depth_resolution=8, depth_resolution_importance=8,
-               image_resolution=64)
 
 
 def tiny_pair():
@@ -384,18 +376,6 @@ def script_defs(path, **overrides):
     exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), ns)
     ns.update(overrides)
     return ns
-
-
-# tests/test_gan.py's discriminator: 64², channel_base 512, channel_max 32.
-TINY_D = dict(c_dim=25, img_resolution=64, img_channels=6, channel_base=512,
-              channel_max=32, mbstd_group_size=2, mapping_layers=2)
-# The trainer at tiny size: batch 2, 32 density points, style mixing and
-# the pose swap on (gpc faded in by 1 kimg), EMA without rampup. No blur:
-# tgi's ``_blur`` cannot be traced with taps.
-TINY_GAN = dict(batch_size=2, blur_init_sigma=0, density_reg_samples=32,
-                neural_rendering_resolution_initial=16,
-                style_mixing_prob=0.5, gpc_reg_fade_kimg=1.0,
-                ema_rampup=None)
 
 
 def gan_pair(augment=False, **over):

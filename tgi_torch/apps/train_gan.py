@@ -2,16 +2,27 @@
 
 Counterpart of the reference's (unshipped) train.py launcher driving
 training/training_loop.py: a dataset folder or zip with camera labels
--> GAN training at EG3D's FFHQ 512 configuration, on one device.
+-> GAN training at EG3D's FFHQ 512 configuration, on one device or
+data-parallel over several, one process each:
 
     train_gan(data="faces/", outdir="run/")              # the function
     python -m tgi_torch.apps.train_gan --data faces/ --outdir run/
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m tgi_torch.apps.train_gan --data faces/ --outdir run/ \
+        --mesh-data 4
+
+Under ``torch.distributed.run`` each process joins the group it
+describes (NCCL, its card ``cuda:LOCAL_RANK``; gloo with ``--device
+cpu``) and takes its rows of the batch (``tgi_torch.parallel``); as in
+``tgi``, ``--batch`` is the global batch.
 
 The command line needs click (imported inside ``main``); the function
 does not.
 """
 
 from __future__ import annotations
+
+import torch
 
 from tgi_torch import default_device
 
@@ -49,21 +60,32 @@ def train_gan(data, outdir, *, batch_size=4, r1_gamma=1.0,
     ``dataset.json`` of 25-float camera labels) into ``outdir``; returns
     the train state. ``loop_kwargs`` go to
     ``tgi_torch.train.loop.training_loop`` (``kimg_per_tick``,
-    ``snapshot_ticks``, ``augment_p``, ``abort_fn``, ...)."""
-    if mesh_data is not None:
-        raise NotImplementedError("--mesh-data: data parallelism over a "
-                                  "device mesh is not ported yet (ROADMAP "
-                                  "item 14)")
+    ``snapshot_ticks``, ``augment_p``, ``abort_fn``, ...).
+
+    In a process group (joined here from ``torch.distributed.run``'s
+    environment, or by the caller) or with ``mesh_data``, training is
+    data-parallel over a ``make_mesh(data=mesh_data)`` of the group's
+    ranks, one device each; ``mesh_data`` must then be the world size
+    (1 without a group)."""
+    from tgi_torch.parallel.mesh import init_from_env, make_mesh
     from tgi_torch.train.loop import training_loop
     G, d_cfg, cfg = training_configs(
         batch_size=batch_size, r1_gamma=r1_gamma,
         img_resolution=img_resolution, neural_res=neural_res,
         sr_module=sr_module, gpc_reg_prob=gpc_reg_prob,
         density_reg=density_reg)
-    return training_loop(G=G, d_cfg=d_cfg, data_path=data, run_dir=outdir,
-                         cfg=cfg, total_kimg=total_kimg,
-                         resume_ckpt=resume_ckpt,
-                         device=device or default_device(), **loop_kwargs)
+    device, joined = init_from_env(device or default_device())
+    try:
+        mesh = (make_mesh(data=mesh_data, devices=[device])
+                if mesh_data is not None
+                or torch.distributed.is_initialized() else None)
+        return training_loop(G=G, d_cfg=d_cfg, data_path=data,
+                             run_dir=outdir, cfg=cfg, total_kimg=total_kimg,
+                             resume_ckpt=resume_ckpt, mesh=mesh,
+                             device=device, **loop_kwargs)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 def main(argv=None):
@@ -84,7 +106,8 @@ def main(argv=None):
     @click.option("--density-reg", default=0.25)
     @click.option("--resume", "resume_ckpt", default=None)
     @click.option("--mesh-data", default=None, type=int,
-                  help="data-parallel axis size (not ported: raises)")
+                  help="data-parallel axis size: the number of processes "
+                       "torch.distributed.run starts (default: all)")
     @click.option("--device", default=default_device())
     def cli(**kwargs):
         train_gan(**kwargs)

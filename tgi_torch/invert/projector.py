@@ -65,6 +65,7 @@ from tgi_torch.losses.warp import (area_downsample, bilinear_resize_nchw,
                                    calc_warping_loss, calc_warping_losses)
 from tgi_torch.models.pose_resnet import resnet34_apply, stack_nets
 from tgi_torch.models.vgg import lpips_features, warping_features
+from tgi_torch.parallel.collectives import from_rank0
 from tgi_torch.render.cameras import (euler_to_rotmat, quaternion_to_rotmat,
                                       rot6d_to_rotmat)
 
@@ -477,7 +478,7 @@ class Projector:
     # -- batched inversion --------------------------------------------------
 
     def init_state_batch(self, B, *, generators=None, z=None, noise=None,
-                         targets_255=None, pose_params_b=None):
+                         targets_255=None, pose_params_b=None, mesh=None):
         """:meth:`init_state` of B images at once: (state, optimizers,
         w_std). Image b's leaves are row b of the state's: w [B, 1, 1,
         w_dim], noise [B, res, res] per buffer, translation [B, 1, 3] and
@@ -488,7 +489,9 @@ class Projector:
         ``generators[b]`` (or takes ``z`` [B, n, z_dim] and ``noise``, a
         dict of [B, res, res] stacks); each image starts at its own
         batch's w mean, plus the e4e code of its own target, and w_std is
-        image 0's, as ``tgi`` takes ``w_std[0]``."""
+        image 0's, as ``tgi`` takes ``w_std[0]``: with a data-parallel
+        ``mesh`` (``tgi_torch.parallel``), the global batch's image 0's,
+        which rank 0 holds."""
         cfg = self.cfg
         gens = list(generators) if generators is not None else [None] * B
         dev = self.device
@@ -505,7 +508,8 @@ class Projector:
                                 truncation_cutoff=cfg.truncation_cutoff)
             w = ws[:, 0, :].reshape(B, n, -1)
             w_avg = w.mean(dim=1, keepdim=True)                 # [B, 1, D]
-            w_std = torch.sqrt(torch.sum(torch.square(w[0] - w_avg[0])) / n)
+            w_std = from_rank0(mesh, torch.sqrt(
+                torch.sum(torch.square(w[0] - w_avg[0])) / n))
             start_w = w_avg[:, None]                         # [B, 1, 1, D]
             if self.e4e_encode is not None:
                 if targets_255 is None:
@@ -618,7 +622,7 @@ class Projector:
 
     def project_batch(self, targets_255, *, targets_warp=None,
                       pose_params_b=None, generators=None, num_steps=None,
-                      z=None, noise=None, draws=None):
+                      z=None, noise=None, draws=None, mesh=None):
         """Invert B targets at once (``tgi``'s ``project_batch``,
         BASELINE.json's configuration 5): B independent projections, each
         with its own w, noise buffers, translation, pose net and Adam
@@ -633,6 +637,10 @@ class Projector:
         nets. Draws: image b's from ``generators[b]`` (see
         :meth:`init_state_batch` and :meth:`step_batch`), or ``z`` /
         ``noise`` and ``draws(step) -> (w_noise, render draws)`` given.
+        Data-parallel over a ``mesh``'s ranks (``tgi_torch.parallel``),
+        each rank passes its rows of the global batch (``shard_batch``:
+        targets, nets, generators) and inverts them; the images meet only
+        in w_std, the global image 0's (:meth:`init_state_batch`).
 
         Returns (ws [B, 1, num_ws, w_dim], cams [B, 1, 25], the final
         state, metrics {"loss", "dist", "warp"}: [steps, B] tensors).
@@ -652,7 +660,7 @@ class Projector:
                                           targets_255)
         state, opts, w_std = self.init_state_batch(
             B, generators=generators, z=z, noise=noise,
-            targets_255=targets_255, pose_params_b=pose_params_b)
+            targets_255=targets_255, pose_params_b=pose_params_b, mesh=mesh)
         metrics = {"loss": [], "dist": [], "warp": []}
         for i in range(num_steps):
             w_noise, step_draws = draws(i) if draws is not None else (

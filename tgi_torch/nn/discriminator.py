@@ -25,6 +25,7 @@ from tgi_torch.nn.layers import (conv2d_layer_apply, conv2d_layer_init,
 from tgi_torch.nn.mapping import mapping_network_apply, mapping_network_init
 from tgi_torch.nn.synthesis import RESAMPLE_FILTER
 from tgi_torch.ops.upfirdn2d import downsample2d, upsample2d
+from tgi_torch.parallel.collectives import gather_rows, own_rows
 
 
 @dataclass(frozen=True)
@@ -83,18 +84,24 @@ def discriminator_block_apply(params, x, img, *, conv_clamp=256):
     return y + x, img
 
 
-def minibatch_std(x, group_size=4, num_channels=1):
-    """networks_stylegan2.py:645-671."""
-    N, C, H, W = x.shape
+def minibatch_std(x, group_size=4, num_channels=1, mesh=None):
+    """networks_stylegan2.py:645-671. Sample i groups with i + N/G, i +
+    2N/G, ... of the global batch: with a data-parallel ``mesh`` the
+    statistics are taken over every rank's rows (gathered, with their
+    gradient), as in ``tgi``'s unsharded step, where the reference's DDP
+    shrinks the groups to each GPU's batch."""
+    _, C, H, W = x.shape
+    xs = gather_rows(mesh, x)
+    N = xs.shape[0]
     G = min(group_size, N) if group_size is not None else N
     F_ = num_channels
     c = C // F_
-    y = x.reshape(G, -1, F_, c, H, W)
+    y = xs.reshape(G, -1, F_, c, H, W)
     y = y - y.mean(dim=0)
     y = torch.sqrt(y.square().mean(dim=0) + 1e-8)
     y = y.mean(dim=(2, 3, 4))
     y = y.reshape(-1, F_, 1, 1)
-    y = y.repeat(G, 1, H, W)
+    y = own_rows(mesh, y.repeat(G, 1, H, W))
     return torch.cat([x, y], dim=1)
 
 
@@ -125,9 +132,12 @@ def discriminator_init(generator, cfg: DiscriminatorConfig, device="cuda"):
 
 
 def discriminator_apply(params, img, c, cfg: DiscriminatorConfig, *,
-                        c_noise=None):
+                        c_noise=None, mesh=None):
     """Logits [N, 1]. ``c_noise``: the ``[N, c_dim]`` standard normal
-    draw that ``disc_c_noise > 0`` scales (no noise when None)."""
+    draw that ``disc_c_noise > 0`` scales (no noise when None). With a
+    data-parallel ``mesh`` (``tgi_torch.parallel``), ``img`` and ``c``
+    are this rank's rows, and what reads across the batch reads the
+    global batch."""
     x = None
     for res in cfg.block_resolutions:
         x, img = discriminator_block_apply(params[f"b{res}"], x, img,
@@ -136,12 +146,14 @@ def discriminator_apply(params, img, c, cfg: DiscriminatorConfig, *,
     if cfg.c_dim > 0:
         if cfg.disc_c_noise > 0 and c_noise is not None:
             # jnp.std: the population deviation.
-            c = c + c_noise * c.std(dim=0, unbiased=False) * cfg.disc_c_noise
+            c = c + c_noise * gather_rows(mesh, c).std(
+                dim=0, unbiased=False) * cfg.disc_c_noise
         cmap = mapping_network_apply(params["mapping"], None, c, z_dim=0,
                                      c_dim=cfg.c_dim, num_ws=None,
                                      num_layers=cfg.mapping_layers)
     ep = params["b4"]
-    x = minibatch_std(x, cfg.mbstd_group_size, cfg.mbstd_num_channels)
+    x = minibatch_std(x, cfg.mbstd_group_size, cfg.mbstd_num_channels,
+                      mesh=mesh)
     x = conv2d_layer_apply(ep["conv"], x, activation="lrelu",
                            conv_clamp=cfg.conv_clamp)
     x = fully_connected_apply(ep["fc"], x.reshape(x.shape[0], -1),

@@ -16,7 +16,9 @@ from tgi_torch.render.maths import linspace_batch
 from tgi_torch.render.march import composite_depth, transmittance_weights
 
 
-def _uniform(shape, generator, like):
+def draw_uniform(shape, generator, like):
+    """Uniforms in [0, 1) of ``shape`` from ``generator``, on ``like``'s
+    device."""
     if generator is None:
         raise ValueError("a stochastic draw needs a torch.Generator or an "
                          "explicit tensor")
@@ -38,7 +40,7 @@ def sample_stratified(ray_origins, ray_start, ray_end, depth_resolution,
 
     def draw():
         return (jitter.to(dev) if jitter is not None
-                else _uniform((N, M, D, 1), generator, ray_origins))
+                else draw_uniform((N, M, D, 1), generator, ray_origins))
 
     if disparity_space_sampling:
         depths = torch.linspace(0., 1., D, device=dev).reshape(
@@ -90,7 +92,7 @@ def sample_pdf(bins, weights, N_importance, det=False, eps=1e-5, u=None,
         u = torch.linspace(0., 1., N_importance,
                            device=cdf.device)[None].repeat(R, 1)
     else:
-        u = _uniform((R, N_importance), generator, cdf)
+        u = draw_uniform((R, N_importance), generator, cdf)
 
     inds = torch.searchsorted(cdf, u.contiguous(), right=True)
     below = torch.clamp(inds - 1, min=0)

@@ -1,8 +1,12 @@
 """Two-pass hierarchical volumetric renderer over tri-planes (twin of
 ``tgi/render/renderer.py``; parity target renderer.py:137-210).
 
-The ray-axis sharding constraint of ``tgi`` has no counterpart here; a
-render runs on one device.
+Under ``tgi_torch.parallel.ray_constrained`` the ray axis is cut into
+contiguous chunks, one per device of the mesh's 'rays' axis, at ``tgi``'s
+place (``constrain_ray_axis``); each chunk renders on its device and the
+results meet on the first. The auto ray limits take their min and max
+over all rays before the cut, and every draw is the unsharded render's,
+cut with the rays, so the split render is the unsharded one.
 
 ``density_noise > 0`` (a rendering kwarg) adds ``normal * density_noise``
 to sigma after the decoder, as ``tgi`` does. ``tgi`` draws both passes'
@@ -17,8 +21,9 @@ import torch
 
 from tgi_torch.ops.grid_sample import channels_last, sample_triplanes
 from tgi_torch.render.decoder import osg_decoder_apply
-from tgi_torch.render.importance import (merged_march, sample_importance,
-                                         sample_stratified)
+from tgi_torch.parallel.mesh import constrain_ray_axis
+from tgi_torch.render.importance import (draw_uniform, merged_march,
+                                         sample_importance, sample_stratified)
 from tgi_torch.render.march import mip_ray_marcher
 from tgi_torch.render.maths import get_ray_limits_box
 from tgi_torch.utils.draws import as_draws
@@ -86,8 +91,13 @@ def importance_render(planes, decoder_params, ray_origins, ray_directions,
     N, M, _ = ray_origins.shape
     # One copy into the sampling kernel's layout serves both passes.
     planes = channels_last(planes)
+    # Under tgi_torch.parallel.ray_constrained: this process's chunks of
+    # the ray axis, one per 'rays' device ([whole] otherwise).
+    ro_parts = constrain_ray_axis(ray_origins)
+    rd_parts = constrain_ray_axis(ray_directions)
 
     if options["ray_start"] == options["ray_end"] == "auto":
+        # Over all rays of the batch, before any cut.
         ray_start, ray_end = get_ray_limits_box(
             ray_origins, ray_directions, box_side_length=options["box_warp"])
         is_valid = ray_end > ray_start
@@ -109,6 +119,59 @@ def importance_render(planes, decoder_params, ray_origins, ray_directions,
             sigma_noise if sigma_noise is not None else density_noise_draws(
                 (N, M * S, 1), (N, M * N_importance, 1), generator,
                 ray_origins.device))
+    args = dict(options=options, det=det, generator=generator)
+    if len(ro_parts) == 1:
+        return _render_rays(planes, decoder_params, ray_origins,
+                            ray_directions, ray_start, ray_end, jitter=jitter,
+                            u=u, noise_coarse=noise_coarse,
+                            noise_fine=noise_fine, **args)
+
+    # The split render: the unsharded render's draws, at its shapes and
+    # in its order, cut with the rays.
+    if not det:
+        if jitter is None:
+            jitter = draw_uniform((N, M, S, 1), generator, ray_origins)
+        if u is None and N_importance > 0:
+            u = draw_uniform((N * M, N_importance), generator, ray_origins)
+
+    def cut(t, shape):
+        """``t`` viewed as [N, M, ...], cut along M; each piece reshaped
+        to ``shape(m)`` (floats and None go to every piece)."""
+        if not torch.is_tensor(t):
+            return [t] * len(ro_parts)
+        return [p.reshape(shape(p.shape[1]))
+                for p in constrain_ray_axis(t.reshape(N, M, -1))]
+
+    pieces = [
+        _render_rays(planes.to(o.device), _to(decoder_params, o.device), o,
+                     d, s, e, jitter=j, u=uu, noise_coarse=nc,
+                     noise_fine=nf, **args)
+        for o, d, s, e, j, uu, nc, nf in zip(
+            ro_parts, rd_parts, cut(ray_start, lambda m: (N, m, 1)),
+            cut(ray_end, lambda m: (N, m, 1)),
+            cut(jitter, lambda m: (N, m, S, 1)),
+            cut(u, lambda m: (N * m, N_importance)),
+            cut(noise_coarse, lambda m: (N, m * S, 1)),
+            cut(noise_fine, lambda m: (N, m * N_importance, 1)))]
+    first = ray_origins.device
+    return tuple(torch.cat([p[i].to(first) for p in pieces], dim=1)
+                 for i in range(3))
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _render_rays(planes, decoder_params, ray_origins, ray_directions,
+                 ray_start, ray_end, *, options, det, generator, jitter, u,
+                 noise_coarse, noise_fine):
+    """Both passes and the merged march over the rays given; ray_start /
+    ray_end are floats or their [N, M, 1] tensors."""
+    N, M, _ = ray_origins.shape
+    S = options["depth_resolution"]
+    N_importance = options["depth_resolution_importance"]
     depths_coarse = sample_stratified(
         ray_origins, ray_start, ray_end, S,
         options.get("disparity_space_sampling", False), det=det,

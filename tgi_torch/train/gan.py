@@ -21,6 +21,16 @@ differentiates it again to D's weights.
 Every random draw comes from a draw source (``tgi_torch.utils.draws``)
 split as ``tgi`` splits its key; a ``torch.Generator`` draws them in
 call order.
+
+With a data-parallel ``mesh`` (``tgi_torch.parallel``) each rank steps
+on its rows of the global batch and the step is ``tgi``'s unsharded one:
+the conditioning swap rolls the gathered batch, minibatch-std reads every
+rank's rows, each draw is the global draw's rows
+(``utils/draws.py::RowDraws``), the metrics are means over the ranks,
+and each phase's gradients are averaged by one flat all-reduce before
+they are sanitized (``parallel/collectives.py``). Not
+``DistributedDataParallel``: the gradients come from
+``torch.autograd.grad`` on the params tree.
 """
 
 from __future__ import annotations
@@ -38,8 +48,10 @@ from tgi_torch.nn.discriminator import (DiscriminatorConfig,
 from tgi_torch.nn.superres import sr_random_noise
 from tgi_torch.nn.synthesis import random_noise
 from tgi_torch.ops.upfirdn2d import filter2d
+from tgi_torch.parallel.collectives import (gather_rows, mean_grads,
+                                            mean_over_ranks, own_rows)
 from tgi_torch.render.renderer import density_noise_draws
-from tgi_torch.utils.draws import as_draws
+from tgi_torch.utils.draws import RowDraws, as_draws
 
 
 @dataclass(frozen=True)
@@ -116,11 +128,13 @@ class GANTrainer:
     (:func:`init_train_state`)."""
 
     def __init__(self, G, d_cfg: DiscriminatorConfig,
-                 cfg: GANTrainConfig = GANTrainConfig(), augment_fn=None):
+                 cfg: GANTrainConfig = GANTrainConfig(), augment_fn=None,
+                 mesh=None):
         self.G = G
         self.d_cfg = d_cfg
         self.cfg = cfg
         self.augment_fn = augment_fn
+        self.mesh = mesh
         self.g_adam = cfg.lazy_adjusted(cfg.g_lr, cfg.g_reg_interval)
         self.d_adam = cfg.lazy_adjusted(cfg.d_lr, cfg.d_reg_interval)
 
@@ -157,6 +171,12 @@ class GANTrainer:
         ema_beta = 0.5 ** (cfg.batch_size / max(ema_nimg, 1e-8))
         return blur_sigma, swapping_prob, res, ema_beta
 
+    def _rolled(self, c):
+        """``torch.roll(c, 1, dims=0)`` over the global batch, this rank's
+        rows (loss.py:62's swap partner)."""
+        return own_rows(self.mesh, torch.roll(gather_rows(self.mesh, c), 1,
+                                              dims=0))
+
     # -- G side -------------------------------------------------------------
 
     def _run_G(self, g_params, z, c, draws, swapping_prob, neural_res):
@@ -164,7 +184,7 @@ class GANTrainer:
         N = c.shape[0]
         if swapping_prob is not None:
             swap = k_swap.uniform((N, 1)) < swapping_prob
-            c_gen = torch.where(swap, torch.roll(c, 1, dims=0), c)
+            c_gen = torch.where(swap, self._rolled(c), c)
         else:
             c_gen = torch.zeros_like(c)
         ws = self.G.mapping(g_params, z, c_gen)
@@ -207,7 +227,8 @@ class GANTrainer:
         if self.augment_fn is not None:
             img, img_raw = self.augment_fn(img, img_raw, draws, ada_p)
         return dual_discriminator_apply(d_params, img, img_raw, c, self.d_cfg,
-                                        filter_mode=self.cfg.filter_mode)
+                                        filter_mode=self.cfg.filter_mode,
+                                        mesh=self.mesh)
 
     def gmain_loss(self, g_params, d_params, z, c, draws, blur_sigma,
                    blur_size, swapping_prob, neural_res, ada_p):
@@ -224,7 +245,7 @@ class GANTrainer:
         k_swap, k_coord, k_perturb = draws.split(3)
         if swapping_prob is not None:
             swap = k_swap.uniform(()) < swapping_prob
-            c_gen = torch.where(swap, torch.roll(c, 1, dims=0), c)
+            c_gen = torch.where(swap, self._rolled(c), c)
         else:
             c_gen = torch.zeros_like(c)
         ws = self.G.mapping(g_params, z, c_gen)
@@ -290,7 +311,9 @@ class GANTrainer:
                    do_greg: bool, do_dreg: bool, ada_p: float = 0.0):
         """One full G+D update of ``state`` in place; returns (state,
         metrics), metrics as 0-d tensors. ``rng``: a ``torch.Generator``
-        or a draw source. The schedules (blur sigma and size, swap
+        or a draw source. With the trainer's ``mesh``, ``z``, ``c`` and
+        ``real_img`` are this rank's rows, and the metrics are the global
+        batch's. The schedules (blur sigma and size, swap
         probability, neural resolution, EMA beta) come from
         ``cur_nimg`` on the host, as the reference computes them per step
         (training_loop.py:280-300)."""
@@ -298,7 +321,10 @@ class GANTrainer:
         blur_sigma, swapping_prob, neural_res, ema_beta = \
             self._schedules(cur_nimg)
         blur_size = int(np.floor(blur_sigma * 3))
-        k_g, k_greg, k_d, k_dreg = as_draws(rng, real_img.device).split(4)
+        draws = as_draws(rng, real_img.device)
+        if self.mesh is not None and self.mesh.group is not None:
+            draws = RowDraws(draws, self.mesh.rank, self.mesh.data)
+        k_g, k_greg, k_d, k_dreg = draws.split(4)
         g_params, d_params = state["g_params"], state["d_params"]
         d_frozen = _map(torch.Tensor.detach, d_params)
 
@@ -317,7 +343,7 @@ class GANTrainer:
             g_grads = [a + gain * b
                        for a, b in zip(g_grads, _grads(greg, g_params))]
             metrics["g_reg"] = greg.detach()
-        _apply(state["g_opt"], g_params, g_grads)
+        _apply(state["g_opt"], g_params, mean_grads(self.mesh, g_grads))
 
         # D phase (+ lazy R1 at gain = d_reg_interval, loss.py:290).
         d_loss, signs_real = self.dmain_loss(
@@ -333,14 +359,14 @@ class GANTrainer:
             d_grads = [a + gain * b
                        for a, b in zip(d_grads, _grads(dreg, d_params))]
             metrics["d_reg"] = dreg.detach()
-        _apply(state["d_opt"], d_params, d_grads)
+        _apply(state["d_opt"], d_params, mean_grads(self.mesh, d_grads))
 
         # EMA (training_loop.py:307-317).
         with torch.no_grad():
             for (_, e), (_, p) in zip(_leaves(state["g_ema"]),
                                       _leaves(g_params)):
                 e.copy_(p + (e - p) * ema_beta)
-        return state, metrics
+        return state, mean_over_ranks(self.mesh, metrics)
 
 
 def _apply(opt, params, grads):

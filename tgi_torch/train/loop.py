@@ -5,9 +5,13 @@ data, lazy-regularization phase cadence, EMA, ADA adjustment, tick
 logging (stdout + stats.jsonl), image/checkpoint snapshots, in-loop
 metric hooks, cooperative abort.
 
-One process on one device. ``tgi``'s ``mesh`` (data parallelism over
-chips) waits for ROADMAP item 14, and its orbax snapshots have no twin
-(``io/orbax_io.py`` is not ported by design): both raise. Checkpoints
+One process per device. With a data-parallel ``mesh``
+(``tgi_torch.parallel.make_mesh`` inside a process group, as ``tgi``'s
+``mesh``) every rank reads the same global batch and steps on its rows
+(``shard_batch``), the weights start from rank 0's (``replicate``), and
+only rank 0 writes ``stats.jsonl``, checkpoints and image grids; the
+abort is rank 0's. ``tgi``'s orbax snapshots have no twin
+(``io/orbax_io.py`` is not ported by design) and raise. Checkpoints
 are the port's single files (``io/checkpoints.py``), named as ``tgi``
 names them, ``network-XXXXXX.ckpt``, and hold the whole train state
 (G, D, the EMA and both Adams' moments), so a resume restores it bit for
@@ -22,6 +26,8 @@ import time
 import numpy as np
 import torch
 
+from tgi_torch.parallel.collectives import rank0_flag
+from tgi_torch.parallel.mesh import replicate, shard_batch
 from tgi_torch.train.augment import AdaptiveAugment, AugmentPipe
 from tgi_torch.train.dataset import ImageFolderDataset, infinite_batches
 from tgi_torch.train.gan import (GANTrainConfig, GANTrainer,
@@ -59,22 +65,25 @@ def training_loop(
     (``tgi`` starts at 0); the pipe runs where it or ``ada_target`` is
     set, and ADA adjusts p from ``ada_target``. Weights are drawn from a
     CPU generator seeded by ``seed``; latents and every draw of the step
-    from a generator on ``device`` seeded the same.
+    from a generator on ``device`` seeded the same. ``mesh``: a
+    ``tgi_torch.parallel`` mesh whose data axis splits the batch over the
+    process group's ranks (``device`` is this rank's).
     """
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet "
-                                  "(ROADMAP item 14)")
     if checkpoint_backend != "torch":
         raise NotImplementedError(
             f"checkpoint_backend={checkpoint_backend!r}: the port writes "
             f"its own single-file checkpoints ('torch'); orbax snapshots "
             f"have no twin")
-    os.makedirs(run_dir, exist_ok=True)
+    # Only rank 0 writes.
+    writes = mesh is None or mesh.rank == 0
+    if writes:
+        os.makedirs(run_dir, exist_ok=True)
     device = torch.device(device)
-    logger = JsonlLogger(os.path.join(run_dir, "stats.jsonl"))
+    logger = (JsonlLogger(os.path.join(run_dir, "stats.jsonl")) if writes
+              else None)
     collector = Collector()
     tb = None
-    if tensorboard:
+    if tensorboard and writes:
         # Optional mirror of the jsonl stream (utils/log_utils.py parity).
         from tgi_torch.utils.opt_viz import TBWriter
         tb = TBWriter(os.path.join(run_dir, "tb"))
@@ -86,7 +95,7 @@ def training_loop(
 
     augment_fn = (AugmentPipe() if ada_target is not None or augment_p > 0
                   else None)
-    trainer = GANTrainer(G, d_cfg, cfg, augment_fn=augment_fn)
+    trainer = GANTrainer(G, d_cfg, cfg, augment_fn=augment_fn, mesh=mesh)
     state = init_train_state(torch.Generator().manual_seed(seed), G, d_cfg,
                              trainer, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -96,6 +105,9 @@ def training_loop(
         data = load_checkpoint(resume_ckpt, device=device)
         load_train_state(state, data["params"])
         cur_nimg = int((data["metadata"] or {}).get("cur_nimg", 0))
+    if mesh is not None:
+        replicate(mesh, {k: state[k] for k in ("g_params", "d_params",
+                                               "g_ema")})
 
     ada_p = augment_p
     ada = (AdaptiveAugment(target=ada_target, batch_size=cfg.batch_size,
@@ -116,6 +128,9 @@ def training_loop(
                             device=device)
             real_c = torch.from_numpy(real_c).to(device)
             real_img = torch.from_numpy(real_img).to(device)
+            if mesh is not None:
+                z, real_c, real_img = shard_batch(mesh,
+                                                  (z, real_c, real_img))
 
             n_batch = cur_nimg // cfg.batch_size
             do_greg = (n_batch % cfg.g_reg_interval) == 0
@@ -146,16 +161,17 @@ def training_loop(
                     "total_sec": now - start_time, "ada_p": ada_p,
                     **{k: v["mean"] for k, v in stats.items()},
                 }
-                print(" ".join(f"{k} {v:.4g}" if isinstance(v, float)
-                               else f"{k} {v}" for k, v in record.items()),
-                      flush=True)
-                logger.write(record)
+                if writes:
+                    print(" ".join(f"{k} {v:.4g}" if isinstance(v, float)
+                                   else f"{k} {v}"
+                                   for k, v in record.items()), flush=True)
+                    logger.write(record)
                 if tb is not None:
                     tb.scalars(record, cur_nimg // 1000, prefix="train/")
                     tb.flush()
                 collector.reset()
 
-                if snapshot_ticks and tick % snapshot_ticks == 0:
+                if writes and snapshot_ticks and tick % snapshot_ticks == 0:
                     from tgi_torch.io.checkpoints import save_checkpoint
                     save_checkpoint(
                         os.path.join(run_dir,
@@ -169,17 +185,20 @@ def training_loop(
                                           "value": float(val),
                                           "kimg": cur_nimg / 1000})
 
-                if image_snapshot_ticks and tick % image_snapshot_ticks == 0:
+                if (writes and image_snapshot_ticks
+                        and tick % image_snapshot_ticks == 0):
                     _save_snapshot_grid(G, state["g_ema"], run_dir, cur_nimg,
                                         seed)
 
                 tick += 1
                 tick_start_nimg = cur_nimg
                 tick_start_time = now
-                if abort_fn is not None and abort_fn():
+                if abort_fn is not None and rank0_flag(
+                        mesh, writes and abort_fn()):
                     break
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
         dataset.close()
         if tb is not None:
             tb.close()

@@ -57,3 +57,36 @@ def as_draws(rng, device):
     if isinstance(rng, torch.Generator):
         return TorchDraws(rng, device)
     return rng
+
+
+class RowDraws:
+    """A draw source for one rank of a data-parallel step: each draw of
+    rank >= 1 is ``draws``' draw at the global batch (axis 0 times
+    ``ranks``) cut to this rank's rows, and a 0-d draw is the batch-wide
+    one, so every rank draws what the unsharded step draws for its rows
+    and every rank's source advances alike. Axis 0 of every draw of the
+    training step is its batch axis, or the batch flattened image-major
+    (the importance uniforms ``[N * M, S]``)."""
+
+    def __init__(self, draws, rank: int, ranks: int):
+        self.draws, self.rank, self.ranks = draws, rank, ranks
+
+    def split(self, n: int):
+        return [RowDraws(d, self.rank, self.ranks)
+                for d in self.draws.split(n)]
+
+    def _rows(self, draw, shape, *args):
+        shape = tuple(shape)
+        if not shape:
+            return draw(shape, *args)
+        full = draw((shape[0] * self.ranks,) + shape[1:], *args)
+        return full[self.rank * shape[0]:(self.rank + 1) * shape[0]]
+
+    def uniform(self, shape):
+        return self._rows(self.draws.uniform, shape)
+
+    def normal(self, shape):
+        return self._rows(self.draws.normal, shape)
+
+    def randint(self, shape, lo: int, hi: int):
+        return self._rows(self.draws.randint, shape, lo, hi)

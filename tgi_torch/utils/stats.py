@@ -1,9 +1,10 @@
 """Training statistics (twin of ``tgi/utils/stats.py``).
 
 Behavioral parity target: torch_utils/training_stats.py:25-270 — per-name
-[count, sum, sum-of-squares] moment triples, collected to mean/std. One
-process; summing the moments across processes waits for the mesh
-(ROADMAP item 14).
+[count, sum, sum-of-squares] moment triples, collected to mean/std, in
+one process. Under a data-parallel mesh (``tgi_torch.parallel``) the
+trainer's metrics are already means over the ranks, so rank 0's
+collector sees the global batch's.
 """
 
 from __future__ import annotations
