@@ -240,6 +240,25 @@ page, frames of each render type, the stats and a capture, a served
 frame equal to the direct call, ms a frame with the plane cache hit and
 missed.
 
+Phase 19 drives what the port refused before: (a) ``train_gan`` at
+phase 14's configuration on its dataset with
+``checkpoint_backend="orbax"`` and ``snapshot_keep=2`` (versioned step
+directories, written in the background, ``io/orbax_io.py``), a snapshot
+every tick of 2 steps for 4 ticks: two finished steps kept, the newest
+with the loop's cur_nimg and restored bit for bit against the host copy
+taken when it was saved, then a resume from them (a left-over temporary
+step beside them) that starts at that cur_nimg, writes a later step and
+keeps two; phase 14's launches a step; the bytes a snapshot takes, the
+seconds each async save held the loop beside a synchronous save, the
+seconds a restore takes; (b) phase 17a-c on the gate's generator with
+``density_noise=1`` and random SR noise (as 16b sets them): the batched
+stage-1 and tuning steps at N = 4 through the kernels, the plain sampler
+and TGI_SPLAT=mxu, each image against its one-image step on its own
+generator's draws, the kernels against their plain versions, the same
+steps under remat against none (every draw taken before the recomputed
+render), and the step times at B = 4 beside phase 17's without the
+options.
+
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the tgi_torch package beside it, the
@@ -4185,20 +4204,22 @@ def batch_targets(torch, G, params, n, seed=0):
     return torch.stack(imgs), torch.stack(t255s)
 
 
-def batch_setup(torch, G, params):
+def batch_setup(torch, G, params, targets_G=None):
     """Stage 1 and stage 2 of B images at full width: each image's pose
-    ResNet-34 calibrated on its target, VGG16 and its LPIPS head, drawn
-    from seeds; a batched projector state with the inputs of one joint
-    step; a coach with AlexNet-LPIPS and the pivots the state gives.
-    Every draw from a seed."""
-    from tgi_torch.invert.coach import CoachConfig, PTICoach, render_draws
+    ResNet-34 calibrated on its target (rendered by ``targets_G``, else
+    ``G``), VGG16 and its LPIPS head, drawn from seeds; a batched
+    projector state with the inputs of one joint step, every draw of its
+    two renders; a coach with AlexNet-LPIPS and the pivots the state
+    gives. Every draw from a seed."""
+    from tgi_torch.invert.coach import (CoachConfig, PTICoach, cat_draws,
+                                        render_draws)
     from tgi_torch.invert.projector import Projector, ProjectorConfig
     from tgi_torch.losses.lpips import make_lpips
     from tgi_torch.models.pose_resnet import (resnet34_calibrate,
                                               resnet34_init, stack_nets)
     from tgi_torch.models.vgg import (lpips_features, lpips_head_init,
                                       vgg16_init)
-    imgs, t255 = batch_targets(torch, G, params, BATCH)
+    imgs, t255 = batch_targets(torch, targets_G or G, params, BATCH)
     gen = torch.Generator().manual_seed(8)
     pose0 = resnet34_init(gen, 4, DEVICE)
     vgg, head = vgg16_init(gen, DEVICE), lpips_head_init(gen, DEVICE)
@@ -4217,8 +4238,7 @@ def batch_setup(torch, G, params):
             w_std * proj.schedule(step)[0])
     cpu = [torch.Generator().manual_seed(30 + b) for b in range(BATCH)]
     views = [[render_draws(G, [g], DEVICE) for g in cpu] for _ in range(2)]
-    draws = tuple((torch.cat([d[0] for d in v]), torch.cat([d[1] for d in v]))
-                  for v in views)
+    draws = tuple(cat_draws(v) for v in views)
     lp = make_lpips("alex", generator=torch.Generator().manual_seed(5),
                     device=DEVICE)
     coach = PTICoach(G, lp, CoachConfig(lpips_threshold=0.0))
@@ -4236,9 +4256,16 @@ def batch_setup(torch, G, params):
 
 
 def _lane_draws(draws, b, M):
-    """Image b's (jitter, u) out of a batch's."""
-    jitter, u = draws
-    return jitter[b:b + 1], u[b * M:(b + 1) * M]
+    """Image b's render draws out of a batch's (``render_draws``' dict):
+    its row of every draw, its M rays' rows of the importance
+    uniforms."""
+    def take(key, v):
+        if isinstance(v, dict):
+            return {k: take(key, x) for k, x in v.items()}
+        if isinstance(v, tuple):
+            return tuple(take(key, x) for x in v)
+        return v[b * M:(b + 1) * M] if key == "u" else v[b:b + 1]
+    return {k: take(k, v) for k, v in draws.items()}
 
 
 class _recorder:
@@ -4307,10 +4334,10 @@ def _tune_batch_grads(torch, gs, bs, params_b, mode="pack", sampler=None):
     for t in named.values():
         t.grad = None
     zero_counts(gs)
-    jitter, u = bs["tune_draws"]
     with splat_route(mode), _recorder(gs, sampler) as rec:
         losses, _ = bs["coach"]._loss_batch(params_b, bs["ws"], bs["cams"],
-                                            bs["imgs"][:, 0], jitter, u)
+                                            bs["imgs"][:, 0],
+                                            bs["tune_draws"])
         losses.sum().backward()
     torch.cuda.synchronize()
     return (losses.detach(), {k: t.grad.clone() for k, t in named.items()
@@ -4472,10 +4499,9 @@ def phase_batched_steps(torch, gs, G, params, bs):
             one = _map_detach(params)
             for t in _leaves(one):
                 t.requires_grad_(True)
-            jitter, u = _lane_draws(bs["tune_draws"], b, M)
             l1, _ = bs["coach"]._loss(one, bs["ws"][b:b + 1] * (1 + move),
-                                      bs["cams"][b:b + 1],
-                                      bs["imgs"][b], jitter=jitter, u=u)
+                                      bs["cams"][b:b + 1], bs["imgs"][b],
+                                      **_lane_draws(bs["tune_draws"], b, M))
             l1.backward()
             return l1.item(), {k: t.grad for k, t in _named_leaves(one)
                                if t.grad is not None}
@@ -4661,10 +4687,11 @@ def phase_batched_run_pti(torch, gs, G, params, bs, tmp):
     return {"wall_s": wall, "launches": launched, "results": results}
 
 
-def phase_batched_step_times(torch, gs, G, params, bs, steps=2, warmup=1):
+def phase_batched_step_times(torch, gs, G, params, bs, steps=2, warmup=1,
+                             sizes=BATCH_TIMING_SIZES):
     """17e: ms per image of a stage-1 joint step and of a tuning step at
-    B = 1, 2, 4, with and without remat (CUDA events, median of
-    ``steps`` after ``warmup``), and the peak memory each takes above
+    B = 1, 2, 4 (``sizes``), with and without remat (CUDA events, median
+    of ``steps`` after ``warmup``), and the peak memory each takes above
     what was allocated before it."""
     import dataclasses as dc
     from tgi_torch.invert.coach import (CoachConfig, MaskedAdam, PTICoach,
@@ -4673,7 +4700,7 @@ def phase_batched_step_times(torch, gs, G, params, bs, steps=2, warmup=1):
     from tgi_torch.models.generator import stack_params
     from tgi_torch.models.pose_resnet import stack_nets
     out = {}
-    for B in BATCH_TIMING_SIZES:
+    for B in sizes:
         for remat in (False, True):
             proj = Projector(G, params, bs["vgg"], bs["head"], bs["nets"][0],
                              dc.replace(bs["proj"].cfg, remat_render=remat))
@@ -4705,10 +4732,9 @@ def phase_batched_step_times(torch, gs, G, params, bs, steps=2, warmup=1):
             opt = MaskedAdam(_leaves(params_b), 3e-4)
 
             def s2_step():
-                jitter, u = render_draws(G, gens, DEVICE)
                 losses, aux = coach._loss_batch(params_b, bs["ws"][:B],
-                                                bs["cams"][:B], imgs, jitter,
-                                                u)
+                                                bs["cams"][:B], imgs,
+                                                render_draws(G, gens, DEVICE))
                 aux["lpips"].tolist()      # the threshold's read-back
                 opt.zero_grad()
                 losses.sum().backward()
@@ -5227,6 +5253,259 @@ def phase_last_modules(torch, gs, G, params, tmp):
     return out
 
 
+# Phase 19: the last refusals. Managed training snapshots (the
+# counterpart of tgi's orbax backend) at phase 14's configuration, and
+# density noise with random SR noise through batched inversion.
+SNAPSHOT_TICKS = 4         # ticks of 19a's first run
+SNAPSHOT_TICK_STEPS = 2    # training steps a tick
+SNAPSHOT_KEEP = 2          # training_loop's snapshot_keep
+NOISE_OPTIONS = dict(density_noise=1.0, superresolution_noise_mode="random")
+
+
+class save_recorder:
+    """Inside the block, every ``SnapshotManager.save`` records its
+    step, the seconds it waited for the save before it and the seconds
+    it then held the caller (the copy to host memory), and keeps a CPU
+    copy of the last state it was handed, taken when it returned."""
+
+    def __init__(self):
+        self.saves, self.last = [], None
+
+    def __enter__(self):
+        from tgi_torch.io.orbax_io import SnapshotManager
+        self.real = real = SnapshotManager.save
+        rec = self
+
+        def save(manager, step, state):
+            t0 = time.perf_counter()
+            manager.wait_until_finished()
+            t1 = time.perf_counter()
+            out = real(manager, step, state)
+            t2 = time.perf_counter()
+            rec.saves.append({"step": step, "wait_s": t1 - t0,
+                              "copy_s": t2 - t1})
+            rec.last = (step, {k: t.detach().cpu().clone() for k, t in
+                               _named_leaves(state["params"])})
+            return out
+
+        SnapshotManager.save = save
+        return self
+
+    def __exit__(self, *exc):
+        from tgi_torch.io.orbax_io import SnapshotManager
+        SnapshotManager.save = self.real
+
+
+def phase_snapshots(torch, gs, tmp):
+    """19a: ``train_gan`` at phase 14's configuration on phase 14's
+    dataset with ``checkpoint_backend="orbax"``, ``snapshot_keep=2`` and
+    a snapshot every tick of SNAPSHOT_TICK_STEPS steps, for
+    SNAPSHOT_TICKS ticks: two finished steps kept, the newest with the
+    loop's cur_nimg, restored bit for bit against the host copy taken
+    when it was saved; then a resume from the run's snapshots (a
+    left-over temporary step beside them) for one more tick, which
+    starts at that cur_nimg, writes a later step and keeps two. Every
+    count is set to 0 before the two runs and read after them; each step
+    launches phase 14's gathers and splats. Logged: the bytes of a
+    snapshot, the seconds the loop was held for each async save beside a
+    synchronous save of the same state, and the seconds of a restore."""
+    import shutil
+    from tgi_torch.apps.train_gan import train_gan
+    from tgi_torch.io.orbax_io import STATE_FILE, make_manager, restore_latest
+    from tgi_torch.train.gan import train_state_tree
+    t_phase = time.perf_counter()
+    data = os.path.join(tmp, "train_data")
+    run = os.path.join(tmp, "snapshot_run")
+    snaps = os.path.join(run, "snapshots")
+    tick = SNAPSHOT_TICK_STEPS * TRAIN_BATCH
+    common = dict(batch_size=TRAIN_BATCH, kimg_per_tick=tick / 1000,
+                  snapshot_ticks=1, image_snapshot_ticks=0, augment_p=0.2,
+                  seed=0, checkpoint_backend="orbax",
+                  snapshot_keep=SNAPSHOT_KEEP)
+    zero_counts(gs)
+    with step_recorder(torch, gs) as records, save_recorder() as saved:
+        state = train_gan(data, run, total_kimg=SNAPSHOT_TICKS * tick / 1000,
+                          **common)
+        first = len(records)
+        steps = make_manager(snaps).all_steps()
+        last_step, host = saved.last
+        t0 = time.perf_counter()
+        data_r, step = restore_latest(make_manager(snaps),
+                                      {"params": train_state_tree(state)})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored_cur = data_r["cur_nimg"]
+        nbytes = os.path.getsize(os.path.join(snaps, str(step), STATE_FILE))
+        restored = dict(_named_leaves(data_r["params"]))
+        live = dict(_named_leaves(train_state_tree(state)))
+        bitwise = (restored.keys() == host.keys() == live.keys() and all(
+            torch.equal(restored[k].cpu(), host[k])
+            and torch.equal(live[k].cpu(), host[k]) for k in host))
+        # A synchronous save of the same state, for the async one's cost.
+        sync = make_manager(os.path.join(tmp, "sync_snapshot"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved.real(sync, step, {"params": train_state_tree(state),
+                                "cur_nimg": step})     # not recorded
+        sync.wait_until_finished()
+        sync_s = time.perf_counter() - t0
+        shutil.rmtree(sync.directory)
+        del data_r, restored, live, host, state
+        stray = os.path.join(snaps, f"{SNAPSHOT_TICKS * tick * 2}.tmp-0")
+        os.makedirs(stray)
+        train_gan(data, run, resume_ckpt=snaps,
+                  total_kimg=(SNAPSHOT_TICKS + 1) * tick / 1000, **common)
+    torch.cuda.synchronize()
+    launches = counts(gs)
+    after = make_manager(snaps).all_steps()
+    end = SNAPSHOT_TICKS * tick
+    async_s = [r["wait_s"] + r["copy_s"] for r in saved.saves]
+    log(f"snapshots: steps {steps} after {first} steps ({SNAPSHOT_TICKS} "
+        f"ticks), {after} after the resumed tick (a temporary step "
+        f"{os.path.basename(stray)} beside them); the newest "
+        f"{nbytes} bytes; restore {restore_s:.3f} s (to the card); a save "
+        f"held the loop {[round(x, 4) for x in async_s]} s (waiting for "
+        f"the save before it {[round(r['wait_s'], 4) for r in saved.saves]}"
+        f", copying to host memory "
+        f"{[round(r['copy_s'], 4) for r in saved.saves]}) beside "
+        f"{sync_s:.3f} s for a synchronous save of the same state; "
+        f"launches {launches}")
+    for i, r in enumerate(records):
+        log(f"  step {i}: cur_nimg {r['cur_nimg']} greg {r['greg']} R1 "
+            f"{r['r1']}: {r['ms']:.1f} ms, {r['gathers']} gathers, "
+            f"{r['splats']} splats")
+    check(first == SNAPSHOT_TICKS * SNAPSHOT_TICK_STEPS
+          and len(records) == first + SNAPSHOT_TICK_STEPS,
+          f"{first} steps, then {len(records) - first}")
+    check(steps == [end - tick, end] and step == last_step == end
+          and restored_cur == end,
+          f"kept steps {steps}, newest {step} (cur_nimg {restored_cur}), "
+          f"last saved {last_step}; expected [{end - tick}, {end}] and "
+          f"cur_nimg {end}")
+    check(bitwise, "the restored snapshot is not the state saved, bit for "
+          "bit")
+    check(records[first]["cur_nimg"] == end,
+          f"the resumed run started at cur_nimg "
+          f"{records[first]['cur_nimg']}, not the newest step's {end}")
+    check(after == [end, end + tick] and os.path.isdir(stray),
+          f"after the resume the kept steps are {after}")
+    for i, r in enumerate(records):
+        want = STEP_LAUNCHES["greg" if r["greg"] else "plain"]
+        check((r["gathers"], r["splats"]) == want
+              and all(math.isfinite(v) for v in r["metrics"].values()),
+              f"step {i}: {r['gathers']} gathers and {r['splats']} splats "
+              f"(expected {want}), metrics {r['metrics']}")
+    check(launches["triplane_gather"] == sum(r["gathers"] for r in records)
+          and launches["triplane_splat"] == sum(r["splats"] for r in records)
+          and launches["triplane_splat_sorted"] == 0,
+          f"launches {launches}")
+    return {"steps_kept": steps, "steps_kept_after_resume": after,
+            "snapshot_bytes": nbytes, "restore_s": restore_s,
+            "async_save_held_s": async_s,
+            "async_save_wait_s": [r["wait_s"] for r in saved.saves],
+            "async_save_copy_s": [r["copy_s"] for r in saved.saves],
+            "sync_save_s": sync_s,
+            "step_ms": [r["ms"] for r in records], "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def _batched_remat(torch, gs, G, params, bs):
+    """19b: the batched stage-1 and tuning steps under remat against the
+    same steps without (deterministic cuDNN, TF32 off): losses within
+    BATCH_LANE_LOSS_TOL relative, each group within STAGE1_GRAD_TOL /
+    GRAD_TOL; every draw taken before the recomputed render, which
+    launches each render's gather again in its backward."""
+    import dataclasses as dc
+    from tgi_torch.invert.coach import PTICoach
+    from tgi_torch.invert.projector import Projector
+    from tgi_torch.models.generator import stack_params
+    bs_r = dict(bs, proj=Projector(
+        G, params, bs["vgg"], bs["head"], bs["nets"][0],
+        dc.replace(bs["proj"].cfg, remat_render=True)), coach=PTICoach(
+        G, bs["coach"].lpips, dc.replace(bs["coach"].cfg, remat=True)))
+    out = {"stage1": {}, "tuning": {}}
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss, _, plain, n, _ = _stage1_batch_grads(torch, gs, bs)
+        loss_r, _, remat, n_r, _ = _stage1_batch_grads(torch, gs, bs_r)
+        params_b = _map_detach(stack_params(params, BATCH))
+        for t in _leaves(params_b):
+            t.requires_grad_(True)
+        tl, tg, tn, _ = _tune_batch_grads(torch, gs, bs, params_b)
+        tl_r, tg_r, tn_r, _ = _tune_batch_grads(torch, gs, bs_r, params_b)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    pairs = (("stage1", ("w", "noise", "pose", "translation"), plain, remat,
+              STAGE1_GRAD_TOL), ("tuning", TUNE_GROUPS, tg, tg_r, GRAD_TOL))
+    for name, groups, a, b, tol in pairs:
+        for g in groups:
+            out[name][g] = _group_err(torch, b, a, g)[0]
+            check(out[name][g] <= tol, f"batched {name} step with the "
+                  f"options, remat vs none, {g}: {out[name][g]} > {tol}")
+    out["stage1"]["loss_rel"] = abs(loss_r - loss) / abs(loss)
+    out["tuning"]["loss_rel"] = ((tl_r - tl).abs() / tl.abs()).max().item()
+    out["launches"] = {"stage1": n, "stage1_remat": n_r, "tuning": tn,
+                       "tuning_remat": tn_r}
+    log(f"batched steps with the options, remat vs none: {out}")
+    check(out["stage1"]["loss_rel"] <= BATCH_LANE_LOSS_TOL
+          and out["tuning"]["loss_rel"] <= BATCH_LANE_LOSS_TOL,
+          f"remat moves the losses: {out}")
+    check(n_r["triplane_gather"] == 2 * n["triplane_gather"] == 8
+          and n_r["triplane_splat"] == n["triplane_splat"] == 4
+          and tn_r["triplane_gather"] == 2 * tn["triplane_gather"] == 4
+          and tn_r["triplane_splat"] == tn["triplane_splat"] == 2,
+          f"launches with the options: {out['launches']}")
+    return out
+
+
+def phase_batched_noise(torch, gs, step_times_17):
+    """19b: phase 17a-c on the gate's generator (seed 2) with
+    NOISE_OPTIONS, as 16b sets them, and phase 17's targets (rendered
+    without them): one batched stage-1 joint step and one batched tuning
+    step at N = 4 through the kernels, again, through the plain sampler
+    and under TGI_SPLAT=mxu, image b against its one-image step on its
+    own generator's draws, the kernels against their plain versions;
+    the same steps under remat (``_batched_remat``); then the step
+    times at B = 4 with and without remat beside phase 17's."""
+    from tgi_torch.models.generator import TriPlaneGenerator
+    from tgi_torch.scripts import selfinv_gate
+    G, params = selfinv_gate.full_width_generator(
+        DEVICE, seed=selfinv_gate.GENERATOR_SEED)
+    Go = TriPlaneGenerator(G.cfg.with_rendering(**NOISE_OPTIONS))
+    bs = batch_setup(torch, Go, params, targets_G=G)
+    rk = Go.cfg.rendering_kwargs
+    M = Go.cfg.neural_rendering_resolution ** 2
+    d = bs["draws"][0]
+    check(set(d) == {"jitter", "u", "sigma_noise", "sr_noise"}
+          and tuple(d["sigma_noise"][0].shape) == (
+              BATCH, M * rk["depth_resolution"], 1),
+          f"the batch's draws: {sorted(d)}")
+    steps = phase_batched_steps(torch, gs, Go, params, bs)
+    steps.pop("n4_inputs")
+    steps["remat"] = _batched_remat(torch, gs, Go, params, bs)
+    times = phase_batched_step_times(torch, gs, Go, params, bs,
+                                     sizes=(BATCH,))
+    for key, t in times.items():
+        before = step_times_17[key]
+        log(f"batched step times {key} with the options: stage 1 "
+            f"{t['stage1_step_ms']:.1f} ms, tuning {t['tuning_step_ms']:.1f}"
+            f" ms; phase 17 without them {before['stage1_step_ms']:.1f} and "
+            f"{before['tuning_step_ms']:.1f} ms")
+    return {"steps": steps, "step_times": times,
+            "step_times_without_options": {k: step_times_17[k]
+                                           for k in times}}
+
+
+def phase_last_refusals(torch, gs, tmp, step_times_17):
+    """Phase 19: a ``phase_snapshots``, b ``phase_batched_noise``."""
+    t0 = time.perf_counter()
+    out = {"snapshots": phase_snapshots(torch, gs, tmp),
+           "batched_noise": phase_batched_noise(torch, gs, step_times_17)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 19 (snapshots, batched noise) in {out['seconds']:.1f} s")
+    return out
+
+
 # The kernels of tgi's two kernel benches, at the benches' shapes: 3
 # planes of 256², the points of a frustum march of Ry x Rx rays and S
 # samples. The render pass's point count first, then the scripts'.
@@ -5533,6 +5812,26 @@ def bench_kernel_entries(times, errs, launches, check_launches, runs):
     return entries
 
 
+def path_launches(refusals, kernel):
+    """Phase 19's launches of ``kernel`` by path: the snapshot runs (the
+    default splat: no sorted splat) and the batched steps with the
+    options (the sorted splat's under TGI_SPLAT=mxu)."""
+    steps = refusals["batched_noise"]["steps"]
+    route = "mxu" if kernel == "triplane_splat_sorted" else "default"
+    out = {} if route == "mxu" else {
+        "snapshots_train_gan_10_steps": refusals["snapshots"]["launches"][
+            kernel],
+        "batched_options_stage1_step_n4_remat": steps["remat"]["launches"][
+            "stage1_remat"][kernel],
+        "batched_options_tuning_step_n4_remat": steps["remat"]["launches"][
+            "tuning_remat"][kernel]}
+    out["batched_options_stage1_step_n4"] = steps["stage1"]["launches"][
+        route][kernel]
+    out["batched_options_tuning_step_n4"] = steps["tuning"]["launches"][
+        route][kernel]
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -5576,6 +5875,8 @@ def main():
         photo = phase_photo_and_tf(torch, gs, G, params, card, tmp)
         batched = phase_batched(torch, gs, gate, tmp, bw)
         last = phase_last_modules(torch, gs, G, params, tmp)
+        refusals = phase_last_refusals(torch, gs, tmp,
+                                       batched["step_times"])
     gather_times = phase_times(torch, gs, G, params, bw)
     _, seen = phase_step_times(torch, gs, params, st)
     splat_times = phase_splat_times(torch, gs, seen, bw)
@@ -5603,6 +5904,7 @@ def main():
         return run["stage1"][kernel] + run["stage2"][kernel]
 
     pack, mxu = runs["pack"], runs["mxu"]
+    noise_kernels = refusals["batched_noise"]["steps"]["kernels_vs_plain"]
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": [{
@@ -5672,7 +5974,8 @@ def main():
                                  "launches_forward"],
                              "clip_loss_step": last["clip"]["launches"][0],
                              "visualizer_5_frames": last["visualizer"][
-                                 "launches"][0]},
+                                 "launches"][0],
+                             **path_launches(refusals, "triplane_gather")},
         "max_abs_err": gather_err,
         "n4_max_abs_err": batched["steps"]["kernels_vs_plain"][
             "gather_max_abs_err"],
@@ -5681,6 +5984,7 @@ def main():
             "max_abs_err"],
         "render_orbit_batch_max_abs_err": outputs["orbit"]["max_abs_err"],
         "calc_metrics_batch_max_abs_err": metrics["batch_max_abs_err"],
+        "n4_options_max_abs_err": noise_kernels["gather_max_abs_err"],
         **gather_times}, {
         "name": "triplane_splat", "route": "cuda",
         "source": "tgi_torch/csrc/triplane_splat.cu",
@@ -5727,12 +6031,14 @@ def main():
                                  "triplane_splat"],
                              "ray_split_backward_2_shards": last[
                                  "ray_split"]["launches_backward"],
-                             "clip_loss_step": last["clip"]["launches"][1]},
+                             "clip_loss_step": last["clip"]["launches"][1],
+                             **path_launches(refusals, "triplane_splat")},
         "max_abs_err": splat_err, "max_rel_err": splat_rel,
         "n4_max_abs_err": batched["steps"]["kernels_vs_plain"][
             "splat_max_abs_err"],
         "n4_max_rel_err": batched["steps"]["kernels_vs_plain"][
             "splat_max_rel_err"],
+        "n4_options_max_rel_err": noise_kernels["splat_max_rel_err"],
         "n4_fine_pass": batched["kernel_times_n4"]["triplane_splat"],
         **splat_times, "check_shape_c16": small_splat}, {
         "name": "triplane_splat_sorted", "route": "cuda",
@@ -5752,13 +6058,16 @@ def main():
                                  "triplane_splat_sorted"],
                              "batched_tuning_step_n4": batched["steps"][
                                  "tuning"]["launches"]["mxu"][
-                                 "triplane_splat_sorted"]},
+                                 "triplane_splat_sorted"],
+                             **path_launches(refusals,
+                                             "triplane_splat_sorted")},
         "max_abs_err": sorted_err, "max_rel_err": sorted_rel,
         "n4_max_abs_err": batched["steps"]["kernels_vs_plain"][
             "sorted_max_abs_err"],
         "n4_max_rel_err": batched["steps"]["kernels_vs_plain"][
             "sorted_max_rel_err"],
         "n4_keys": batched["steps"]["kernels_vs_plain"]["sorted_keys"],
+        "n4_options_max_rel_err": noise_kernels["sorted_max_rel_err"],
         **sorted_times}, *bench_entries],
         "stage1_step_ms": {m: v["step"] for m, v in step1.items()},
         "stage1_launches_per_step": per_step,
@@ -5802,7 +6111,7 @@ def main():
                     "run_pti_wall_s": batched["run_pti"]["wall_s"],
                     "gate": batched["gate"],
                     "phase_s": batched["seconds"]},
-        "last_modules": last}),
+        "last_modules": last, "last_refusals": refusals}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -198,13 +198,16 @@ def test_training_loop_ticks_checkpoint_resume(tmp_path):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    """Orbax snapshots raise (``io/orbax_io.py`` has no twin, by design).
-    The mesh and ``--mesh-data`` (ROADMAP item 14, refused until it was
-    ported) run on one CPU device: a step over the (1, 1) mesh is the
-    step without it, bit for bit, through ``training_loop`` and
-    ``train_gan``, and the command line takes ``--mesh-data 1``;
-    ``--mesh-data 2`` without a process group of two is refused."""
+    """Options refused until they were ported now run. Orbax snapshots
+    (``io/orbax_io.py``'s counterpart): the step runs as without them,
+    bit for bit, and leaves one finished step holding that state and its
+    ``cur_nimg``. The mesh and ``--mesh-data`` (ROADMAP item 14) run on
+    one CPU device: a step over the (1, 1) mesh is the step without it,
+    bit for bit, through ``training_loop`` and ``train_gan``, and the
+    command line takes ``--mesh-data 1``; ``--mesh-data 2`` without a
+    process group of two is refused."""
     from tgi_torch.apps import train_gan as app
+    from tgi_torch.io.orbax_io import make_manager, restore_latest
     from tgi_torch.parallel import make_mesh
     from tgi_torch.train.gan import train_state_tree
     from tgi_torch.train.loop import training_loop
@@ -212,11 +215,20 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     data = _png_dataset(tmp_path, "zip", n=2, res=64)
     common = dict(G=G, d_cfg=d_cfg, data_path=data, cfg=cfg, device="cpu",
                   total_kimg=0.002, image_snapshot_ticks=0)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        training_loop(checkpoint_backend="orbax",
-                      run_dir=str(tmp_path / "o"), **common)
+    snapped = _tree_bits(train_state_tree(training_loop(
+        checkpoint_backend="orbax", kimg_per_tick=0.002, snapshot_ticks=1,
+        run_dir=str(tmp_path / "o"), **common)))
     want = _tree_bits(train_state_tree(training_loop(
         run_dir=str(tmp_path / "a"), **common)))
+    assert snapped.keys() == want.keys()
+    assert all(torch.equal(snapped[p], want[p]) for p in want)
+    manager = make_manager(str(tmp_path / "o" / "snapshots"))
+    data_o, step = restore_latest(manager)
+    assert manager.all_steps() == [2] and step == 2
+    assert data_o["cur_nimg"] == 2
+    saved = dict(leaves_with_paths(data_o["params"]))
+    assert saved.keys() == want.keys()
+    assert all(torch.equal(saved[p], want[p]) for p in want)
     got = _tree_bits(train_state_tree(training_loop(
         mesh=make_mesh(devices=["cpu"]), run_dir=str(tmp_path / "b"),
         **common)))

@@ -97,32 +97,108 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def render_draws(G, generators, device):
-    """(jitter [B, M, D, 1], u [B * M, D_importance]) of one render of B
-    images on ``device``, image b's drawn from ``generators[b]`` (None:
-    the global generator) as a one-image render draws them from its
-    generator (``render/importance.py``), so image b sees the values its
-    own render would. Those are the only draws of an inversion render at
-    the FFHQ rendering kwargs; density noise and random SR noise
-    (training options) are refused."""
+def _draw_names(G):
+    """The draws a stochastic render of ``G`` takes: the stratified
+    jitter and the importance uniforms, and under its rendering kwargs'
+    training options the density noise and the random SR noise."""
     rk = G.cfg.rendering_kwargs
-    if (rk.get("density_noise", 0) > 0 or
-            rk.get("superresolution_noise_mode", "none") == "random"):
-        raise NotImplementedError(
-            "per-image render draws cover the stratified jitter and the "
-            "importance uniforms, not density noise or random SR noise")
+    return (("jitter", "u")
+            + (("sigma_noise",) if rk.get("density_noise", 0) > 0 else ())
+            + (("sr_noise",)
+               if rk.get("superresolution_noise_mode", "none") == "random"
+               else ()))
+
+
+def render_draws(G, sources, device):
+    """Every draw of one stochastic render of B images, as synthesis
+    keywords ({"jitter" [B, M, D, 1], "u" [B * M, D_importance], and
+    under the options "sigma_noise" (coarse [B, M * D, 1], fine [B, M *
+    D_importance, 1]) and "sr_noise" (``nn/superres.py::
+    sr_random_noise`` of B)}) on ``device``. Image b's come from
+    ``sources[b]``: a ``torch.Generator`` (None: the global generator of
+    ``device``) or a draw source (``utils/draws.py``). Each takes them
+    in a one-image render's order (the density normals, shared where
+    the two passes have one shape, the jitter, the uniforms, the SR's
+    noise), so image b sees the values its own render would; a draw
+    source is split as ``tgi``'s synthesis splits its key (backbone,
+    render, SR; the render's into stratified, importance, density)."""
+    return cat_draws([_one_image_draws(G, s, device) for s in sources])
+
+
+def _one_image_draws(G, source, device):
+    """:func:`render_draws` of one image from ``source``."""
+    from tgi_torch.nn.superres import sr_random_noise
+    from tgi_torch.render.renderer import density_noise_draws
+    from tgi_torch.utils.draws import TorchDraws
+    rk = G.cfg.rendering_kwargs
     M = G.cfg.neural_rendering_resolution ** 2
     D, Di = rk["depth_resolution"], rk["depth_resolution_importance"]
+    if source is None:
+        device = torch.device(device)
+        source = (torch.cuda.default_generators[
+            device.index if device.index is not None
+            else torch.cuda.current_device()]
+            if device.type == "cuda" else torch.default_generator)
+    if isinstance(source, torch.Generator):
+        source = TorchDraws(source, device)
+    _, k_render, k_sr = source.split(3)
+    k_strat, k_imp, k_density = k_render.split(3)
+    names = _draw_names(G)
+    out = {}
+    if "sigma_noise" in names:
+        out["sigma_noise"] = density_noise_draws(
+            (1, M * D, 1), (1, M * Di, 1), k_density, device)
+    out["jitter"] = k_strat.uniform((1, M, D, 1))
+    out["u"] = k_imp.uniform((M, Di))
+    if "sr_noise" in names:
+        out["sr_noise"] = sr_random_noise(G.cfg.sr_cfg, 1, k_sr)
+    return out
 
-    def rand(shape, g):
-        return torch.rand(shape, generator=g, device=(
-            g.device if g is not None else device)).to(device)
 
-    jitter, u = [], []
-    for g in generators:
-        jitter.append(rand((1, M, D, 1), g))
-        u.append(rand((M, Di), g))
-    return torch.cat(jitter), torch.cat(u)
+def cat_draws(draws):
+    """One render's draws of several images (each a :func:`render_draws`
+    dict) as those of the batch: every tensor joined on its axis 0."""
+    def cat(items):
+        first = items[0]
+        if isinstance(first, dict):
+            return {k: cat([d[k] for d in items]) for k in first}
+        if isinstance(first, tuple):
+            return tuple(cat(list(z)) for z in zip(*items))
+        return torch.cat(items)
+    return {k: cat([d[k] for d in draws]) for k in draws[0]}
+
+
+def as_render_draws(draws):
+    """Render draws given as a :func:`render_draws` dict, or the pair
+    (jitter, u) alone, as synthesis keywords ({} for None)."""
+    if draws is None:
+        return {}
+    if isinstance(draws, dict):
+        return draws
+    jitter, u = draws
+    return {"jitter": jitter, "u": u}
+
+
+def complete_draws(G, draws):
+    """``draws`` (synthesis keywords), checked to hold every draw of
+    ``G``'s render: a render recomputed in the backward pass, or one of
+    a batch, must draw nothing of its own."""
+    missing = [k for k in _draw_names(G) if draws.get(k) is None]
+    if missing:
+        raise ValueError(f"the render's draws lack {missing}: under remat "
+                         f"and in a batch every draw is given")
+    return draws
+
+
+def _step_draws(given):
+    """A ``draws(step)`` item of :meth:`PTICoach.tune` / ``tune_batch``:
+    (render draws dict[, z]) or (jitter, u[, z]) -> (render draws,
+    z or None)."""
+    if isinstance(given[0], dict):
+        render, rest = given[0], given[1:]
+    else:
+        render, rest = as_render_draws(given[:2]), given[2:]
+    return render, (rest[0] if rest else None)
 
 
 class MaskedAdam:
@@ -185,14 +261,21 @@ class PTICoach:
         self.locality_regularizer = locality_regularizer
 
     def _loss(self, params, w_pivot, camera, real_images, *, generator=None,
-              jitter=None, u=None, locality_z=None):
+              jitter=None, u=None, sigma_noise=None, sr_noise=None,
+              locality_z=None):
         """(loss, {"l2", "lpips"}) of one stochastic render (``det=False``)
-        whose draws come from ``generator`` or are given as ``jitter`` and
-        ``u``; the locality regulariser's z likewise (``locality_z``)."""
+        whose draws come from ``generator`` or are given as ``jitter``,
+        ``u``, ``sigma_noise`` and ``sr_noise`` (see :func:`render_draws`;
+        under ``remat`` all or none); the locality regulariser's z
+        likewise (``locality_z``)."""
         cfg = self.cfg
-        if cfg.remat and jitter is None:
-            jitter, u = render_draws(self.G, [generator], w_pivot.device)
-        out = self._render(params, w_pivot, camera, jitter, u, generator)
+        draws = {k: v for k, v in (("jitter", jitter), ("u", u),
+                                   ("sigma_noise", sigma_noise),
+                                   ("sr_noise", sr_noise)) if v is not None}
+        if cfg.remat:
+            draws = complete_draws(self.G, draws or render_draws(
+                self.G, [generator], w_pivot.device))
+        out = self._render(params, w_pivot, camera, draws, generator)
         R = cfg.raw_resolution
         if real_images.shape[-1] > R:
             real_raw = area_downsample(real_images, R)
@@ -216,16 +299,16 @@ class PTICoach:
         loss = loss + compute_tv_norm(out["image_depth"][0])
         return loss, {"l2": l2_val, "lpips": lp}
 
-    def _render(self, params, ws, camera, jitter, u, generator=None):
-        """One stochastic render, recomputed in the backward pass under
-        ``remat``."""
-        def render(params, ws, camera, jitter, u):
+    def _render(self, params, ws, camera, draws, generator=None):
+        """One stochastic render with the given ``draws`` (synthesis
+        keywords; the rest from ``generator``), recomputed in the
+        backward pass under ``remat``."""
+        def render(params, ws, camera, draws):
             return self.G.synthesis(params, ws, camera, noise_mode="const",
-                                    det=False, generator=generator,
-                                    jitter=jitter, u=u)
+                                    det=False, generator=generator, **draws)
         if self.cfg.remat:
             render = checkpointed(render)
-        return render(params, ws, camera, jitter, u)
+        return render(params, ws, camera, draws)
 
     def tune(self, params, w_pivot, camera, real_images, *, generator=None,
              draws=None, max_steps=None, checkpoint_fn=None):
@@ -246,8 +329,9 @@ class PTICoach:
         floats.
 
         The render's draws come from ``generator`` (a torch.Generator), or
-        from ``draws(step) -> (jitter, u)`` when given, and then the
-        locality regulariser's z from a third item where there is one.
+        from ``draws(step) -> (jitter, u)`` or ``(render draws)`` (a
+        :func:`render_draws` dict) when given, and then the locality
+        regulariser's z from the item after them where there is one.
         ``checkpoint_fn(step, params)`` fires after every applied update
         with the count of updates so far.
         """
@@ -264,10 +348,11 @@ class PTICoach:
         lp = float("inf")
         losses = []
         for i in range(max_steps):
-            jitter, u, *z = draws(i) if draws is not None else (None, None)
+            step_draws, z = (_step_draws(draws(i)) if draws is not None
+                             else ({}, None))
             loss, aux = self._loss(params, w_pivot, camera, real_images,
-                                   generator=generator, jitter=jitter, u=u,
-                                   locality_z=z[0] if z else None)
+                                   generator=generator, locality_z=z,
+                                   **step_draws)
             lp = float(aux["lpips"].detach())
             losses.append(float(loss.detach()))
             if not lp > cfg.lpips_threshold:
@@ -283,15 +368,19 @@ class PTICoach:
 
     # -- batched tuning -----------------------------------------------------
 
-    def _loss_batch(self, params, w_pivots, cameras, real_images, jitter, u,
+    def _loss_batch(self, params, w_pivots, cameras, real_images, draws,
                     locality_z=None):
         """(per-image losses [B], {"l2", "lpips": [B] each}): :meth:`_loss`
         of B images at once, each with its own generator copy in
         ``params`` (every leaf per image), w_pivots [B, num_ws, D],
-        cameras [B, 25], real_images [B, 3, R, R]; one render of all B."""
+        cameras [B, 25], real_images [B, 3, R, R]; one render of all B
+        with ``draws``, every draw of the B images' render (a
+        :func:`render_draws` dict, or (jitter, u) where the render takes
+        no other)."""
         cfg = self.cfg
         B = w_pivots.shape[0]
-        out = self._render(params, w_pivots, cameras, jitter, u)
+        out = self._render(params, w_pivots, cameras, complete_draws(
+            self.G, as_render_draws(draws)))
         R = cfg.raw_resolution
         if real_images.shape[-1] > R:
             real_raw = area_downsample(real_images, R)
@@ -335,10 +424,11 @@ class PTICoach:
         :class:`MaskedAdam` with each image's moments and step count.
 
         Image b draws from ``generators[b]`` what ``tune`` draws from its
-        generator (the render's jitter and u, then the locality
+        generator (every draw of the render, then the locality
         regulariser's z), or every image's draws come from ``draws(step)
-        -> (jitter [B, M, D, 1], u [B * M, D_importance][, z [B,
-        num_samples, z_dim]])``.
+        -> (render draws[, z [B, num_samples, z_dim]])``, the render's
+        as a :func:`render_draws` dict of the B images or as (jitter [B,
+        M, D, 1], u [B * M, D_importance]) where it takes no other.
         """
         cfg = self.cfg
         max_steps = cfg.max_pti_steps if max_steps is None else max_steps
@@ -361,21 +451,18 @@ class PTICoach:
                if self.locality_regularizer is not None else 0)
         for i in range(max_steps):
             if draws is not None:
-                jitter, u, *z = draws(i)
-                z = z[0] if z else None
+                step_draws, z = _step_draws(draws(i))
             else:
-                js, us, zs = [], [], []
+                rd, zs = [], []
                 for g in gens:         # each image's draws in tune's order
-                    j, uu = render_draws(self.G, [g], dev)
-                    js.append(j)
-                    us.append(uu)
+                    rd.append(render_draws(self.G, [g], dev))
                     if n_z:
                         zs.append(torch.randn((n_z, self.G.cfg.z_dim),
                                               generator=g, device=dev))
-                jitter, u = torch.cat(js), torch.cat(us)
+                step_draws = cat_draws(rd)
                 z = torch.stack(zs).to(dev) if n_z else None
             loss, aux = self._loss_batch(params, w_pivots, cameras,
-                                         real_images, jitter, u,
+                                         real_images, step_draws,
                                          locality_z=z)
             lp_now = aux["lpips"].detach().cpu().tolist()
             loss_now = loss.detach().cpu().tolist()

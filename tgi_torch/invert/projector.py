@@ -45,7 +45,9 @@ for the 256² [0, 255] target (w_projector.py:99-115).
 Every random draw can be given as a tensor, so tests hand the port
 ``tgi``'s draws: the z batch of :meth:`Projector.compute_w_stats`, the
 noise re-draw of :meth:`Projector.init_state`, and per step the w noise
-and the two renders' (jitter, u).
+and the two renders' draws (their (jitter, u), or every draw of each as
+an ``invert/coach.py::render_draws`` dict, the density noise and the
+random SR noise included).
 """
 
 from __future__ import annotations
@@ -56,7 +58,9 @@ from functools import partial
 
 import torch
 
-from tgi_torch.invert.coach import _leaves, _map, checkpointed, render_draws
+from tgi_torch.invert.coach import (_leaves, _map, as_render_draws,
+                                    cat_draws, checkpointed, complete_draws,
+                                    render_draws)
 from tgi_torch.losses.basic import (noise_regularization,
                                     noise_regularization_per_image,
                                     normalize_noise,
@@ -295,9 +299,9 @@ class Projector:
               generator=None, draws=None, target_warp=None):
         """(loss, {"dist", "warp", "noise_reg", "pred_cam"}) of one step:
         the predicted view and the canonical view rendered stochastically,
-        their draws from ``generator`` or given as ``draws`` =
-        ((jitter, u) of the predicted view, (jitter, u) of the canonical
-        one)."""
+        their draws from ``generator`` or given as ``draws`` = (the
+        predicted view's, the canonical one's), each a ``render_draws``
+        dict or (jitter, u); under ``remat_render`` every draw."""
         cfg = self.cfg
         if target_warp is None:
             # Without the full-resolution target: the same 256² target in
@@ -306,18 +310,19 @@ class Projector:
         if draws is None and cfg.remat_render:
             draws = tuple(render_draws(self.G, [generator], self.device)
                           for _ in range(2))
-        (j_pred, u_pred), (j_canon, u_canon) = draws or ((None, None),
-                                                         (None, None))
+        d_pred, d_canon = (as_render_draws(d) for d in draws or (None, None))
+        if cfg.remat_render:
+            d_pred, d_canon = (complete_draws(self.G, d)
+                               for d in (d_pred, d_canon))
         pred_ext, pred_cam = self.camera(state["pose"], state["translation"],
                                          target_255)
         ws = (state["w"] + w_noise).repeat(1, self.G.cfg.num_ws, 1)
         gen_params = merge_noise(self.base_params, state["noise"])
         render = self._renderer(generator)
-        pred = render(gen_params, ws, pred_cam, j_pred, u_pred)
+        pred = render(gen_params, ws, pred_cam, d_pred)
         # The canonical view renders the detached latent
         # (w_projector.py:203-205); pose and noise still get gradient.
-        canon = render(gen_params, ws.detach(), self.canonical_cam, j_canon,
-                       u_canon)
+        canon = render(gen_params, ws.detach(), self.canonical_cam, d_canon)
         pred_images_255 = pred["image"] * 127.5 + 128
 
         # Both warp-feature inputs are in [-1, 1] (warping_loss.py:37-38,
@@ -346,14 +351,14 @@ class Projector:
                       "pred_cam": pred_cam}
 
     def _renderer(self, generator=None):
-        """render(params, ws, cam, jitter, u): one stochastic render of
-        the projection, recomputed in the backward pass under
+        """render(params, ws, cam, draws): one stochastic render of the
+        projection with the given ``draws`` (synthesis keywords; the rest
+        from ``generator``), recomputed in the backward pass under
         ``remat_render``."""
-        def render(params, ws, cam, jitter, u):
+        def render(params, ws, cam, draws):
             return self.G.synthesis(params, ws, cam, noise_mode="const",
                                     det=False, generator=generator,
-                                    jitter=jitter, u=u,
-                                    force_fp32=self.cfg.render_fp32)
+                                    force_fp32=self.cfg.render_fp32, **draws)
         return checkpointed(render) if self.cfg.remat_render else render
 
     # -- stepping -----------------------------------------------------------
@@ -546,14 +551,15 @@ class Projector:
         """(the sum of the B images' losses, {"dist", "warp", "noise_reg":
         [B] each, "pred_cam" [B, 25]}): :meth:`_loss` of every image of a
         batched state, each view of all B images in one render. ``draws``
-        = ((jitter, u) of the predicted views, (jitter, u) of the
-        canonical ones), B images' each (``invert/coach.py::
-        render_draws``)."""
+        = (the predicted views', the canonical ones'), each every draw of
+        the B images' render (``invert/coach.py::render_draws``), or
+        (jitter, u) where the render takes no other."""
         cfg = self.cfg
         B = targets_255.shape[0]
         if targets_warp is None:
             targets_warp = targets_255 / 127.5 - 1.0
-        (j_pred, u_pred), (j_canon, u_canon) = draws
+        d_pred, d_canon = (complete_draws(self.G, as_render_draws(d))
+                           for d in draws)
         pred_ext, pred_cam = assemble_camera(
             resnet34_apply(state["pose"], targets_255),
             state["translation"].reshape(B, 3), cfg.camera_mode, cfg.radius,
@@ -562,9 +568,9 @@ class Projector:
             1, self.G.cfg.num_ws, 1)
         gen_params = merge_noise(self.base_params, state["noise"])
         render = self._renderer()
-        pred = render(gen_params, ws, pred_cam, j_pred, u_pred)
+        pred = render(gen_params, ws, pred_cam, d_pred)
         canon = render(gen_params, ws.detach(),
-                       self.canonical_cam.expand(B, 25), j_canon, u_canon)
+                       self.canonical_cam.expand(B, 25), d_canon)
         pred_images_255 = pred["image"] * 127.5 + 128
         warp = calc_warping_losses(
             canon["image"], partial(warping_features, self.vgg_params),
@@ -608,8 +614,7 @@ class Projector:
             for g in gens:                  # each image's draws in order
                 for view in draws:
                     view.append(render_draws(self.G, [g], self.device))
-            draws = tuple((torch.cat([d[0] for d in v]),
-                           torch.cat([d[1] for d in v])) for v in draws)
+            draws = tuple(cat_draws(v) for v in draws)
         for opt in opts.values():
             opt.zero_grad(set_to_none=True)
         loss, aux = self._loss_batch(state, targets_255, target_feats,

@@ -1,7 +1,8 @@
 """Mapping network z (+c) -> w with truncation (twin of
 ``tgi/nn/mapping.py``; parity target networks_stylegan2.py:192-271).
 
-``w_avg`` is a tensor of the params dict; this slice only reads it.
+``w_avg`` is a tensor of the params dict: truncation reads it and
+:func:`update_w_avg` returns params with its moving average advanced.
 """
 
 from __future__ import annotations
@@ -60,3 +61,11 @@ def mapping_network_apply(params, z, c, *, z_dim, c_dim, num_ws,
             trunc = w_avg + truncation_psi * (x[:, :truncation_cutoff] - w_avg)
             x = torch.cat([trunc, x[:, truncation_cutoff:]], dim=1)
     return x
+
+
+def update_w_avg(params, ws_detached, beta=0.998):
+    """Functional EMA update of w_avg (reference update_emas path): the
+    params with ``w_avg`` moved toward the batch mean of ``ws_detached``
+    [N, w_dim]; ``params`` is not changed."""
+    mean_w = ws_detached.mean(dim=0)
+    return {**params, "w_avg": mean_w + (params["w_avg"] - mean_w) * beta}

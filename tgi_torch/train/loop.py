@@ -10,12 +10,12 @@ One process per device. With a data-parallel ``mesh``
 ``mesh``) every rank reads the same global batch and steps on its rows
 (``shard_batch``), the weights start from rank 0's (``replicate``), and
 only rank 0 writes ``stats.jsonl``, checkpoints and image grids; the
-abort is rank 0's. ``tgi``'s orbax snapshots have no twin
-(``io/orbax_io.py`` is not ported by design) and raise. Checkpoints
-are the port's single files (``io/checkpoints.py``), named as ``tgi``
-names them, ``network-XXXXXX.ckpt``, and hold the whole train state
-(G, D, the EMA and both Adams' moments), so a resume restores it bit for
-bit.
+abort is rank 0's. Checkpoints are the port's single files
+(``io/checkpoints.py``) and hold the whole train state (G, D, the EMA
+and both Adams' moments), so a resume restores it bit for bit. By
+default each snapshot is its own file, named as ``tgi`` names them,
+``network-XXXXXX.ckpt``; ``checkpoint_backend="orbax"`` keeps them as
+``tgi``'s orbax backend does (``io/orbax_io.py``, the port's format).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import time
 import numpy as np
 import torch
 
+from tgi_torch.io.orbax_io import make_manager, restore_latest, save_step
 from tgi_torch.parallel.collectives import rank0_flag
 from tgi_torch.parallel.mesh import replicate, shard_batch
 from tgi_torch.train.augment import AdaptiveAugment, AugmentPipe
@@ -55,7 +56,8 @@ def training_loop(
     metric_fns: dict | None = None,
     abort_fn=None,
     tensorboard: bool = False,
-    checkpoint_backend: str = "torch",
+    checkpoint_backend: str = "torch",   # 'torch' | 'orbax'
+    snapshot_keep: int = 5,
     device="cuda",
 ):
     """GAN training loop (reference training_loop.py:93-430); returns the
@@ -68,12 +70,17 @@ def training_loop(
     from a generator on ``device`` seeded the same. ``mesh``: a
     ``tgi_torch.parallel`` mesh whose data axis splits the batch over the
     process group's ranks (``device`` is this rank's).
+
+    ``checkpoint_backend="orbax"`` writes the periodic snapshots as
+    versioned step directories under ``run_dir/snapshots``, the newest
+    ``snapshot_keep`` kept, each saved in the background
+    (``io/orbax_io.py``); ``resume_ckpt`` then names such a directory,
+    and its newest step is restored with its ``cur_nimg`` (an empty
+    one starts the run afresh). Every rank restores; rank 0 writes.
     """
-    if checkpoint_backend != "torch":
-        raise NotImplementedError(
-            f"checkpoint_backend={checkpoint_backend!r}: the port writes "
-            f"its own single-file checkpoints ('torch'); orbax snapshots "
-            f"have no twin")
+    if checkpoint_backend not in ("torch", "orbax"):
+        raise ValueError(f"checkpoint_backend={checkpoint_backend!r}: "
+                         f"'torch' or 'orbax'")
     # Only rank 0 writes.
     writes = mesh is None or mesh.rank == 0
     if writes:
@@ -100,7 +107,19 @@ def training_loop(
                              trainer, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     cur_nimg = 0
-    if resume_ckpt:
+    manager = None
+    snapshots = os.path.join(run_dir, "snapshots")
+    if checkpoint_backend == "orbax" and writes:
+        manager = make_manager(snapshots, max_to_keep=snapshot_keep)
+    if resume_ckpt and checkpoint_backend == "orbax":
+        src = (manager if manager is not None and os.path.abspath(
+            resume_ckpt) == os.path.abspath(snapshots)
+            else make_manager(resume_ckpt, max_to_keep=snapshot_keep))
+        data, _ = restore_latest(src, {"params": train_state_tree(state)})
+        if data is not None:
+            load_train_state(state, data["params"])
+            cur_nimg = int(data["cur_nimg"])
+    elif resume_ckpt:
         from tgi_torch.io.checkpoints import load_checkpoint
         data = load_checkpoint(resume_ckpt, device=device)
         load_train_state(state, data["params"])
@@ -172,12 +191,18 @@ def training_loop(
                 collector.reset()
 
                 if writes and snapshot_ticks and tick % snapshot_ticks == 0:
-                    from tgi_torch.io.checkpoints import save_checkpoint
-                    save_checkpoint(
-                        os.path.join(run_dir,
-                                     f"network-{cur_nimg // 1000:06d}.ckpt"),
-                        train_state_tree(state),
-                        metadata={"cur_nimg": cur_nimg})
+                    if manager is not None:
+                        save_step(manager, cur_nimg,
+                                  {"params": train_state_tree(state),
+                                   "cur_nimg": cur_nimg})
+                    else:
+                        from tgi_torch.io.checkpoints import save_checkpoint
+                        save_checkpoint(
+                            os.path.join(
+                                run_dir,
+                                f"network-{cur_nimg // 1000:06d}.ckpt"),
+                            train_state_tree(state),
+                            metadata={"cur_nimg": cur_nimg})
                     if metric_fns:
                         for name, fn in metric_fns.items():
                             val = fn(state["g_ema"])
@@ -196,12 +221,16 @@ def training_loop(
                 if abort_fn is not None and rank0_flag(
                         mesh, writes and abort_fn()):
                     break
+        if manager is not None:
+            manager.wait_until_finished()   # the saves are async
     finally:
         if logger is not None:
             logger.close()
         dataset.close()
         if tb is not None:
             tb.close()
+        if manager is not None:
+            manager.wait_until_finished()
     return state
 
 

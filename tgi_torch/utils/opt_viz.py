@@ -162,15 +162,17 @@ class FanoutWriter:
             w.close()
 
 
-def make_projection_snapshotter(proj, out_dir, name, *, tb=None):
+def make_projection_snapshotter(proj, out_dir, name, *, save_warp=True,
+                                tb=None):
     """A ``snapshot_fn(step, state, target_255)`` for
     ``Projector.project``.
 
     Renders the current (w, camera) state deterministically in float32
     and saves ``<out_dir>_pivot/<name>/<step>.png`` (w_projector.py:
-    196-199) and the canonical view warped into the predicted camera as
-    ``warp_<step>.png`` (w_projector.py:207-212, kept under the run's
-    output directory); ``tb`` gets both images.
+    196-199) and, with ``save_warp``, the canonical view warped into the
+    predicted camera as ``warp_<step>.png`` (w_projector.py:207-212, kept
+    under the run's output directory; without it the canonical view is
+    not rendered); ``tb`` gets the images saved.
     """
     from tgi_torch.invert.projector import merge_noise
     from tgi_torch.losses.warp import calc_warping_loss
@@ -189,6 +191,8 @@ def make_projection_snapshotter(proj, out_dir, name, *, tb=None):
         params = merge_noise(proj.base_params, state["noise"])
         pred = G.synthesis(params, ws, pred_cam, noise_mode="const",
                            det=True, force_fp32=True)
+        if not save_warp:
+            return pred["image"], None
         canon = G.synthesis(params, ws, proj.canonical_cam,
                             noise_mode="const", det=True, force_fp32=True)
         _, warped = calc_warping_loss(
@@ -200,10 +204,12 @@ def make_projection_snapshotter(proj, out_dir, name, *, tb=None):
     def snapshot(step, state, target_255):
         img, warped = render(state, target_255)
         save_image(os.path.join(pivot_dir, f"{int(step)}.png"), img[0])
-        save_image(os.path.join(pivot_dir, f"warp_{int(step)}.png"),
-                   warped[0])
         if tb is not None:
             tb.image(f"{name}/reconstruction", img[0], step)
-            tb.image(f"{name}/warp", warped[0], step)
+        if warped is not None:
+            save_image(os.path.join(pivot_dir, f"warp_{int(step)}.png"),
+                       warped[0])
+            if tb is not None:
+                tb.image(f"{name}/warp", warped[0], step)
 
     return snapshot
